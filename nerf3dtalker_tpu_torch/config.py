@@ -1,0 +1,125 @@
+"""Model and audio configuration (copy of `nerf3dtalker_tpu/config.py`'s
+`NeRFConfig`, `reso32`, `reso64` and `AudioConfig`).
+
+Frozen dataclasses; field semantics mirror the reference HeadNeRF options
+(HeadNeRFOptions.py:5-34) and the audio hparams (hparams.py:15-60).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+
+@dataclasses.dataclass(frozen=True)
+class NeRFConfig:
+    """Hyperparameters of the audio-conditioned HeadNeRF core; defaults are
+    the published Reso32 scale. Use :func:`reso32` / :func:`reso64`."""
+
+    bg_type: str = "white"
+
+    iden_code_dims: int = 100
+    expr_code_dims: int = 79
+    text_code_dims: int = 100
+    illu_code_dims: int = 27
+
+    num_sample_coarse: int = 64
+    num_sample_fine: int = 128
+
+    world_z1: float = 2.5
+    world_z2: float = -3.5
+    mlp_hidden: int = 384
+
+    featmap_size: int = 32
+    featmap_nc: int = 256
+    pred_img_size: int = 256
+
+    # positional encoding (HeadNeRFNet.py:27-31)
+    vp_n_freqs: int = 10
+    vp_include_input: bool = True
+    vd_n_freqs: int = 4
+    vd_include_input: bool = True
+
+    include_vd: bool = False
+    hier_sampling: bool = False
+
+    audio_style_dims: int = 64
+
+    include_gaze: bool = False
+    eye_gaze_dim: int = 2
+
+    @property
+    def shape_code_dims(self) -> int:
+        """iden + expr (HeadNeRFNet.py:38)."""
+        return self.iden_code_dims + self.expr_code_dims
+
+    @property
+    def appea_code_dims(self) -> int:
+        """text + illu (HeadNeRFNet.py:39)."""
+        return self.text_code_dims + self.illu_code_dims
+
+    @property
+    def vp_pe_dims(self) -> int:
+        d = self.vp_n_freqs * 6
+        return d + 3 if self.vp_include_input else d
+
+    @property
+    def vd_pe_dims(self) -> int:
+        d = self.vd_n_freqs * 6
+        return d + 3 if self.vd_include_input else d
+
+    @property
+    def vp_channels(self) -> int:
+        """MLP position-branch input channels excluding the audio style:
+        PE(63) + shape(179) [+ gaze]."""
+        c = self.shape_code_dims + self.vp_pe_dims
+        if self.include_gaze:
+            c += self.eye_gaze_dim
+        return c
+
+    @property
+    def vd_channels(self) -> int:
+        """View/appearance-branch channels (HeadNeRFNet.py:56-62)."""
+        c = self.appea_code_dims
+        if self.include_vd:
+            c += self.vd_pe_dims
+        return c
+
+    @property
+    def n_rays(self) -> int:
+        return self.featmap_size * self.featmap_size
+
+    @property
+    def n_upsample_blocks(self) -> int:
+        return int(math.log2(self.pred_img_size) - math.log2(self.featmap_size))
+
+
+def reso32() -> NeRFConfig:
+    return NeRFConfig(featmap_size=32, featmap_nc=256, pred_img_size=256)
+
+
+def reso64() -> NeRFConfig:
+    return NeRFConfig(featmap_size=64, featmap_nc=256, pred_img_size=512)
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioConfig:
+    """Mel-spectrogram pipeline parameters (reference hparams.py:15-60)."""
+
+    sample_rate: int = 16000
+    n_fft: int = 800
+    hop_size: int = 200
+    win_size: int = 800
+    num_mels: int = 80
+    fmin: float = 55.0
+    fmax: float = 7600.0
+    min_level_db: float = -100.0
+    ref_level_db: float = 20.0
+    preemphasis: float = 0.97
+    preemphasize: bool = True
+    signal_normalization: bool = True
+    allow_clipping_in_normalization: bool = True
+    symmetric_mels: bool = True
+    max_abs_value: float = 4.0
+    fps: int = 25
+    mel_step_size: int = 16

@@ -1,0 +1,76 @@
+"""Build the port's CUDA kernels with `nvcc` and load them with `ctypes`.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled for
+`sm_90a` into `build/kernels/lib<name>-<hash>.so` at the checkout's root
+the first time it is used; the hash of the source names the library, so an
+edited source builds anew and an unchanged one is loaded as it is. Nothing
+is compiled or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The `nvcc` on PATH, else the one under PyTorch's CUDA_HOME."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> dict:
+    """Compile kernel `name` unless it is built already. Returns its record:
+    name, library, seconds, and the compiler's output (`-Xptxas -v`
+    registers and shared memory). Raises if `nvcc` fails."""
+    out = library_path(name)
+    if out.exists():
+        return {"name": name, "library": str(out), "seconds": 0.0, "log": "cached"}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, out)
+    return {"name": name, "library": str(out), "seconds": time.perf_counter() - t0,
+            "log": proc.stdout}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build(name)
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

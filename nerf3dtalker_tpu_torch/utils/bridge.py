@@ -1,0 +1,108 @@
+"""Flax param trees -> the port's modules.
+
+A flax tree is the variables dict `{"params": {...}}` of numpy arrays that
+`model.init(...)` gives, or the `/`-joined `.npz` that
+`nerf3dtalker_tpu/utils/checkpoints.py:save_pytree_npz` writes of it
+(`load_npz_tree` reads it back). This inverts the torch->flax maps of
+`nerf3dtalker_tpu/utils/convert.py`:
+
+  HeadNeRF     fg_CD_predictor/{fea_i,density,rgb_i}_{kernel,bias}  same names
+               neural_render/feat_upsample_{i}/layer_{1,2}/{kernel,bias}
+                                               -> feat_upsamples.{i}.layer_{1,2}
+               neural_render/feat_layer_{i}    -> feat_layers.{i}
+               neural_render/feat_2_rgb_{i}    -> feat_2_rgb.{i}
+               neural_render/bg_featmap        [1, S, S, C] NHWC, same
+  Audio2Style  rnn/l{k}_{fwd,bwd}/i{i,f,g,o}/kernel       -> weight_ih_l{k}[_reverse]
+               rnn/l{k}_{fwd,bwd}/h{i,f,g,o}/{kernel,bias} -> weight_hh, bias_hh
+               (bias_ih = 0); linear{1,2,3}/{kernel,bias}  -> linear{1,2,3}
+Dense kernels are [in, out]; torch Linear weights are [out, in].
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_GATES = ("i", "f", "g", "o")
+
+
+def load_npz_tree(path: str) -> dict:
+    """`/`-joined .npz -> nested dict of numpy arrays."""
+    out: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = out
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(z[key])
+    return out
+
+
+def _inner(tree: Mapping) -> Mapping:
+    if set(tree) != {"params"}:
+        raise KeyError(f"expected flax variables {{'params': ...}}, got keys {sorted(tree)}")
+    return tree["params"]
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _linear(d: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.weight": _np(d["kernel"]).T, f"{prefix}.bias": _np(d["bias"])}
+
+
+def headnerf_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
+    """HeadNeRF flax params -> the port HeadNeRF's state_dict (numpy)."""
+    p = _inner(tree)
+    sd = {f"fg_CD_predictor.{k}": _np(v) for k, v in p["fg_CD_predictor"].items()}
+    nr = p["neural_render"]
+    n_blocks = sum(1 for k in nr if k.startswith("feat_layer_"))
+    for i in range(n_blocks):
+        for li in (1, 2):
+            sd.update(_linear(nr[f"feat_upsample_{i}"][f"layer_{li}"],
+                              f"neural_render.feat_upsamples.{i}.layer_{li}"))
+        sd.update(_linear(nr[f"feat_layer_{i}"], f"neural_render.feat_layers.{i}"))
+    for i in range(n_blocks + 1):
+        sd.update(_linear(nr[f"feat_2_rgb_{i}"], f"neural_render.feat_2_rgb.{i}"))
+    sd["neural_render.bg_featmap"] = _np(nr["bg_featmap"])
+    return sd
+
+
+def audio2style_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
+    """Audio2Style flax params -> the port Audio2Style's state_dict (numpy)."""
+    p = _inner(tree)
+    sd = {}
+    for layer in range(2):
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            cell = p["rnn"][f"l{layer}_{direction}"]
+            wi = np.concatenate([_np(cell[f"i{g}"]["kernel"]) for g in _GATES], axis=1)
+            wh = np.concatenate([_np(cell[f"h{g}"]["kernel"]) for g in _GATES], axis=1)
+            bh = np.concatenate([_np(cell[f"h{g}"]["bias"]) for g in _GATES])
+            key = f"rnn.rnn.{{}}_l{layer}{suffix}"
+            sd[key.format("weight_ih")] = wi.T
+            sd[key.format("weight_hh")] = wh.T
+            sd[key.format("bias_ih")] = np.zeros_like(bh)
+            sd[key.format("bias_hh")] = bh
+    for i in (1, 2, 3):
+        sd.update(_linear(p[f"linear{i}"], f"linear{i}"))
+    return sd
+
+
+def load_into(module: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:
+    """Copy a numpy state_dict into `module` on its own device; every key
+    must match in name and shape."""
+    own = module.state_dict()
+    if set(own) != set(state):
+        raise KeyError(f"missing {sorted(set(own) - set(state))}, "
+                       f"unexpected {sorted(set(state) - set(own))}")
+    with torch.no_grad():
+        for k, v in state.items():
+            if tuple(own[k].shape) != v.shape:
+                raise ValueError(f"{k}: shape {v.shape} != {tuple(own[k].shape)}")
+            own[k].copy_(torch.from_numpy(np.array(v, dtype=np.float32)))
+    return module

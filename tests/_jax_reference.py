@@ -1,0 +1,43 @@
+"""JAX reference models shared by the port's parity tests
+(`tests/test_torch_*.py`). Each is built once per process: flax's init of
+the 2x640 BiLSTM and of a full-width HeadNeRF takes seconds to compile on
+the CPU."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from nerf3dtalker_tpu.config import NeRFConfig
+from nerf3dtalker_tpu.models import HeadNeRF
+from nerf3dtalker_tpu.models.audio import Audio2Style
+from nerf3dtalker_tpu.utils.camera import base_cam, ray_grid
+
+
+@functools.lru_cache(maxsize=None)
+def audio2style():
+    """(module, params, jitted apply) of Audio2Style, init key 1 (eager:
+    compiling the whole init with jit takes twice as long here)."""
+    mod = Audio2Style()
+    params = mod.init(jax.random.key(1), jnp.zeros((1, 80, 16)))
+    return mod, params, jax.jit(mod.apply)
+
+
+@functools.lru_cache(maxsize=None)
+def headnerf(seed=0, **cfg_kw):
+    """(module, params, cam dict) of HeadNeRF(NeRFConfig(**cfg_kw)),
+    initialized from `seed` at batch 1 with zero codes."""
+    cfg = NeRFConfig(**cfg_kw)
+    mod = HeadNeRF(cfg)
+    xy, _ = ray_grid(cfg.featmap_size)
+    cam = base_cam(cfg.featmap_size)
+    params = jax.jit(mod.init)(
+        jax.random.key(seed), batch_xy=jnp.asarray(xy),
+        shape_code=jnp.zeros((1, cfg.shape_code_dims)),
+        appea_code=jnp.zeros((1, cfg.appea_code_dims)),
+        audio_style=jnp.zeros((1, cfg.audio_style_dims)),
+        Rmat=jnp.asarray(cam.Rmat), Tvec=jnp.asarray(cam.Tvec),
+        inv_inmat=jnp.asarray(cam.inv_inmat))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    return mod, params, {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}

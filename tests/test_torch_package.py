@@ -1,0 +1,74 @@
+"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
+package, and its entry points refuse to fall back to the CPU."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nerf3dtalker_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "nerf3dtalker_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_kernel_source_is_in_the_package():
+    from nerf3dtalker_tpu_torch.ops.kernels import build
+
+    assert (build.CSRC / "fused_render_fwd.cu").is_file()
+    assert build.library_path("fused_render_fwd").parent == build.BUILD_DIR
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_cuda_raise(no_cuda, tmp_path):
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.config import NeRFConfig
+    from nerf3dtalker_tpu_torch.models.audio import Audio2Style
+    from nerf3dtalker_tpu_torch.models.headnerf import HeadNeRF
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        HeadNeRF(NeRFConfig(featmap_size=8, pred_img_size=32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Audio2Style()
+    wav = tmp_path / "silence.wav"
+    import wave
+
+    with wave.open(str(wav), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes(np.zeros(4000, np.int16).tobytes())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["animate", "--wav", str(wav), "--out", str(tmp_path / "f.npy")])
+
+
+def test_cpu_tensor_runs_plain_version_cuda_request_raises(no_cuda):
+    from nerf3dtalker_tpu_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
