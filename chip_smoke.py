@@ -4,19 +4,28 @@
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero):
-  1. build   — compile every CUDA kernel of the serving path from the
-               sources in the checkout (`nvcc`);
-  2. kernels — call each kernel's wrapper on the card at the shapes the
-               serving path gives it (Reso64, chunk 4), hold it against its
-               plain PyTorch version on the same inputs, and time both with
-               CUDA events;
-  3. serving — drive `cli animate` at Reso64 (featmap 64, image 512, chunk
-               4) on a wav synthesized from the seed, with seeded weights;
-               count kernel launches, check the frames, and hold the first
-               chunk against the plain (kernel-free) render path;
-  4. records — a per-stage time breakdown of one chunk, the `kernels`
-               line, the card's name and power limit, and last the
-               `{"ok": true, "device": ...}` line.
+  1. build    — compile every CUDA kernel from the sources in the checkout,
+                one `nvcc` each, all at once;
+  2. kernels  — call each kernel's wrapper on the card at the shapes its
+                main path gives it (K1 at the Reso64 serving chunk, B=4;
+                K2 at the Reso64 training batch, B=2, both input_grads
+                variants), hold it against its plain PyTorch version on the
+                same inputs, and time both with CUDA events;
+  3. serving  — drive `cli animate` at Reso64 (featmap 64, image 512, chunk
+                4) on a wav synthesized from the seed, with seeded weights;
+                count kernel launches, check the frames, and hold the first
+                chunk against the plain (kernel-free) render path;
+  4. training — drive `cli train` at Reso64 (B=2, VGG loss with its seeded
+                init, synthetic dataset) for a few steps: count K1 and K2
+                launches per train step and per validation render, require
+                finite losses, every step finite and every parameter moved;
+                hold one deterministic train step through the kernels
+                against the plain (kernel-free, autograd) path; time the
+                steady-state step (ms/step, rays/s) and its parts, and
+                profile 3 steps (device time by kernel, idle share);
+  5. records  — a per-stage time breakdown of one serving chunk, the
+                `kernels` line, the card's name and power limit, and last
+                the `{"ok": true, "device": ...}` line.
 Without CUDA it exits 1 before printing any result.
 """
 
@@ -24,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -47,12 +57,46 @@ KERNEL_RTOL = 5e-3
 FRAME_MAX_ABS = 5e-2
 FRAME_MEAN_ABS = 5e-3
 
-KERNELS = ("fused_render_fwd",)
+# K2 against its plain version. Both recompute the forward with f32 sums in
+# another order; a pre-activation within rounding of 0 then lands on the
+# other side of a ReLU, and a flipped mask passes or stops a whole gradient
+# element for every lower layer of that point. Summed over the points, each
+# weight and bias gradient stays within BWD_RTOL of its own max|ref| (the
+# card test at R=64, with fewer points to average over, saw 1.3e-2 on w0p);
+# d_zd and d_zv come from the composite alone. d_pe is per point: one flip
+# can move a point's d_pe by its own size, so it is held by relative L2
+# error. That the chain itself is right is checked apart, at the same shape:
+# every gradient activation, d_pe and three weight/bias gradients that the
+# kernel wrote, against PyTorch recomputing them from the kernel's own stash
+# (the same bf16 values in, so only f32 summation order differs and a bf16
+# rounding flip moves an element by 2^-8 of itself): STASH_REL_L2
+BWD_RTOL = 2e-2
+D_PE_REL_L2 = 5e-2
+STASH_REL_L2 = 1e-3
+# one deterministic train step through the kernels against the plain path
+# (bf16 too, but rounding each matmul output to bf16 before its bias, where
+# the kernels keep f32): relative error of the total loss, and relative L2
+# error of every gradient leaf, which also carries the ReLU mask flips above
+STEP_LOSS_RTOL = 1e-2
+STEP_GRAD_REL_L2 = 3e-2
+
+KERNELS = ("fused_render_fwd", "fused_render_bwd")
 FRAMES = 8   # served at Reso64 in chunks of 4: two K1 launches
+DEVICE = "cuda"        # of the training phases
+TRAIN_EPOCHS = 2        # cli train at Reso64: 8 synthetic frames, B=2 -> 4 steps an epoch,
+TRAIN_FRAMES = 8        # and 2 validation frames rendered one at a time after each epoch
+VAL_FRAMES = 2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def train_config():
+    """The configuration the training phases drive: Reso64 at full width."""
+    from nerf3dtalker_tpu_torch.config import reso64
+
+    return reso64()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -80,45 +124,73 @@ def phase_build():
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    records = [build.build(name) for name in KERNELS]
+    records = build.build_all(KERNELS)
     secs = time.perf_counter() - t0
     for r in records:
         ptxas = [ln.strip() for ln in r["log"].splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
         log(f"build {r['name']}: {r['seconds']:.1f} s; " + " | ".join(ptxas))
-    log(f"build: {len(records)} kernel(s) in {secs:.1f} s with {version}")
+    log(f"build: {len(records)} kernel(s) in {secs:.1f} s (concurrently) with {version}")
     return {"nvcc": version, "build_s": secs}
 
 
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations at the bf16 peak
+    and the bytes at the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def base_camera(B: int):
+    """(xy, Rmat, Tvec, inv_inmat) of B Reso64 frames at the base camera,
+    on the card."""
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch.utils.camera import base_cam, ray_grid
+
+    xy, _ = ray_grid(64)
+    cam = base_cam(64)
+
+    def t(a, *reps):
+        return torch.as_tensor(np.tile(a, reps), device="cuda")
+
+    return t(xy, B, 1, 1), t(cam.Rmat, B, 1, 1), t(cam.Tvec, B, 1), t(cam.inv_inmat, B, 1, 1)
+
+
+def rays_and_pe(xy, Rmat, Tvec, inv_inmat, noise=None):
+    """(pe, z_dists, zvals) of Reso64 rays, made by the port's own functions
+    as HeadNeRF makes them, stratified with `noise` [B, R, 65] if given."""
+    from nerf3dtalker_tpu_torch.config import reso64
+    from nerf3dtalker_tpu_torch.ops.embedding import positional_encoding_rays
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.ops.rays import gen_rays, sample_points, stratified_zvals
+
+    cfg = reso64()
+    rays = gen_rays(xy, Rmat, Tvec, inv_inmat)
+    zb = stratified_zvals(rays, cfg.num_sample_coarse, cfg.world_z1, cfg.world_z2, noise)
+    sp = sample_points(rays, zb)
+    pe = positional_encoding_rays(rays.origins, rays.directions, rays.lengths, sp.zvals,
+                                  cfg.vp_n_freqs, cfg.vp_include_input,
+                                  pad_to=fr.pe_pad_for(cfg.vp_pe_dims))
+    return pe.contiguous(), sp.z_dists.contiguous(), sp.zvals.contiguous()
+
+
 def fused_render_inputs(seed: int, B: int = 4):
-    """Reso64 kernel inputs made by the port's own functions."""
+    """Reso64 kernel inputs made by the port's own functions, with a seeded
+    MLP whose biases are nonzero and seeded codes."""
     import torch
 
     from nerf3dtalker_tpu_torch.config import reso64
     from nerf3dtalker_tpu_torch.models.nerf_mlp import NeRFMLP
-    from nerf3dtalker_tpu_torch.ops.embedding import positional_encoding_rays
     from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
-    from nerf3dtalker_tpu_torch.ops.rays import gen_rays, sample_points, stratified_zvals
-    from nerf3dtalker_tpu_torch.utils.camera import base_cam, ray_grid
 
     cfg = reso64()
     dev = torch.device("cuda")
-    S = cfg.featmap_size
-    xy, _ = ray_grid(S)
-    cam = base_cam(S)
-
-    def t(a, *reps):
-        import numpy as np
-
-        return torch.as_tensor(np.tile(a, reps), device=dev)
-
-    rays = gen_rays(t(xy, B, 1, 1), t(cam.Rmat, B, 1, 1), t(cam.Tvec, B, 1),
-                    t(cam.inv_inmat, B, 1, 1))
-    zb = stratified_zvals(rays, cfg.num_sample_coarse, cfg.world_z1, cfg.world_z2)
-    sp = sample_points(rays, zb)
-    pe = positional_encoding_rays(rays.origins, rays.directions, rays.lengths, sp.zvals,
-                                  cfg.vp_n_freqs, cfg.vp_include_input,
-                                  pad_to=fr.pe_pad_for(cfg.vp_pe_dims)).contiguous()
     g = torch.Generator().manual_seed(seed)
     mlp = NeRFMLP(cfg.vp_channels, cfg.vd_channels, cfg.audio_style_dims,
                   hidden=cfg.mlp_hidden, out_features=cfg.featmap_nc)
@@ -134,7 +206,7 @@ def fused_render_inputs(seed: int, B: int = 4):
     # the kernel's operand types, so the timed wrapper casts nothing
     packed = {k: (v.to(torch.bfloat16) if k.startswith("w") else v.float()).contiguous()
               for k, v in packed.items()}
-    return pe, sp.z_dists.contiguous(), sp.zvals.contiguous(), packed
+    return (*rays_and_pe(*base_camera(B)), packed)
 
 
 def phase_kernels(seed: int):
@@ -165,14 +237,9 @@ def phase_kernels(seed: int):
         ms = cuda_ms(lambda: fr.fused_render_fwd(pe, zd, zv, packed), reps=10)
         plain_ms = cuda_ms(lambda: fr.reference_render(pe, zd, zv, packed, torch.bfloat16),
                            reps=10, warmup=1)
-    w = packed
-    macs = (w["w0p"].numel() + w["wh"].numel() + w["w5p"].numel() + w["w5x"].numel()
-            + w["wd"].numel() + w["wr0"].numel() + w["wr1"].numel() + w["wr2"].numel())
-    flops = 2.0 * B * R * ns * macs
-    nbytes = sum(t.numel() * t.element_size() for t in (pe, zd, zv, *w.values()))
-    nbytes += sum(t.numel() * t.element_size() for t in out)
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
+    flops = 2.0 * B * R * ns * mlp_macs(packed)
+    nbytes = tensor_bytes(pe, zd, zv, *packed.values(), *out)
+    bound_ms, bound_by = bound(flops, nbytes)
     log(f"fused_render_fwd B={B} R={R}: {ms:.3f} ms (plain {plain_ms:.3f} ms); "
         f"{flops / 1e12:.4f} TFLOP, {nbytes / 1e6:.1f} MB -> bound {bound_ms:.3f} ms "
         f"by {bound_by}; {flops / ms / 1e9:.1f} TFLOP/s achieved")
@@ -182,6 +249,92 @@ def phase_kernels(seed: int):
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}  # no single PyTorch call computes MLP + composite
+
+
+def mlp_macs(packed) -> int:
+    """Multiply-adds of the point MLP per point: one per weight."""
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+
+    return sum(packed[k].numel() for k in fr._WEIGHTS)
+
+
+def phase_kernel_bwd(seed: int):
+    """K2 at the Reso64 training shape (B=2, R=4096), both variants."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+
+    pe, zd, zv, packed = fused_render_inputs(seed, B=2)
+    B, R, ns, _ = pe.shape
+    g = torch.Generator().manual_seed(seed + 1)
+    gf, gb, gd = (torch.randn(*shape, generator=g).cuda()
+                  for shape in ((B, R, fr.FEAT), (B, R), (B, R)))
+    max_abs = 0.0
+    rec = {}
+    scratch = torch.empty(fr.scratch_bytes(B, R), dtype=torch.uint8, device="cuda")
+    for input_grads in (False, True):
+        with torch.no_grad():
+            out = fr.fused_render_bwd(pe, zd, zv, packed, gf, gb, gd, input_grads=input_grads,
+                                      scratch=scratch)
+            ref = fr.reference_render_bwd(pe, zd, zv, packed, gf, gb, gd, torch.bfloat16,
+                                          input_grads=input_grads)
+        torch.cuda.synchronize()
+        pairs = [(k, out[3][k], ref[3][k]) for k in fr._WEIGHTS + fr._BIASES]
+        if input_grads:
+            pairs += [("d_zd", out[1], ref[1]), ("d_zv", out[2], ref[2])]
+            rel = float((out[0] - ref[0]).norm() / ref[0].norm())
+            log(f"fused_render_bwd input_grads=True d_pe: rel L2 {rel:.3e} (tolerance "
+                f"{D_PE_REL_L2:.0e}); max_abs_err {float((out[0] - ref[0]).abs().max()):.3e}, "
+                f"max|ref| {float(ref[0].abs().max()):.3e}")
+            if not (torch.isfinite(out[0]).all() and rel <= D_PE_REL_L2):
+                raise AssertionError("fused_render_bwd d_pe disagrees with its plain version")
+            # the chain against PyTorch on the kernel's own stash of this launch
+            stash = fr.stash_chain_errors(scratch, packed, out[0], out[3], B, R)
+            log(f"fused_render_bwd B={B} R={R} chain from its own stash: rel L2 " + ", ".join(
+                f"{k} {v:.2e}" for k, v in stash.items()) + f" (tolerance {STASH_REL_L2:.0e})")
+            if not max(stash.values()) <= STASH_REL_L2:
+                raise AssertionError("fused_render_bwd disagrees with its own stash")
+            rec["stash_worst_rel_l2"] = max(stash.values())
+        worst = 0.0
+        for name, a, b in pairs:
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"fused_render_bwd: non-finite {name}")
+            err, peak = float((a - b).abs().max()), float(b.abs().max())
+            worst = max(worst, err / peak)
+            max_abs = max(max_abs, err)
+            if not err <= BWD_RTOL * peak:
+                raise AssertionError(f"fused_render_bwd {name}: max_abs_err {err:.3e} over "
+                                     f"{BWD_RTOL:.0e} of max|ref| {peak:.3e}")
+        log(f"fused_render_bwd input_grads={input_grads}: every weight/bias gradient"
+            f"{' and d_zd, d_zv' if input_grads else ''} within {worst:.2e} of its own "
+            f"max|ref| (tolerance {BWD_RTOL:.0e})")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fr.fused_render_bwd(pe, zd, zv, packed, gf, gb, gd,
+                                                     input_grads=input_grads), reps=5)
+            plain_ms = cuda_ms(lambda: fr.reference_render_bwd(
+                pe, zd, zv, packed, gf, gb, gd, torch.bfloat16, input_grads=input_grads),
+                reps=3, warmup=1)
+        macs = mlp_macs(packed)
+        chain = macs - (0 if input_grads else packed["w0p"].numel() + packed["w5p"].numel())
+        flops = 2.0 * B * R * ns * (macs + macs + chain)   # recompute + dW + dX
+        outs = (out[0], out[1], out[2]) + tuple(out[3].values())
+        bound_ms, bound_by = bound(flops, tensor_bytes(pe, zd, zv, gf, gb, gd,
+                                                       *packed.values(), *outs))
+        scratch_gb = fr.scratch_bytes(B, R) / 1e9
+        log(f"fused_render_bwd B={B} R={R} input_grads={input_grads}: {ms:.3f} ms "
+            f"(plain {plain_ms:.3f} ms); {flops / 1e12:.4f} TFLOP -> bound {bound_ms:.3f} ms "
+            f"by {bound_by}; {flops / ms / 1e9:.1f} TFLOP/s achieved; scratch {scratch_gb:.2f} GB "
+            f"(stash written once, read back by the weight-gradient passes)")
+        if not input_grads:   # the training path's variant
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        else:
+            rec["input_grads_ms"] = ms
+    del scratch
+    return {"name": "fused_render_bwd", "route": "cuda",
+            "source": "nerf3dtalker_tpu_torch/csrc/fused_render_bwd.cu",
+            "replaces": "nerf3dtalker_tpu/ops/pallas/fused_render.py:522",
+            "max_abs_err": max_abs, **rec,
+            "library_ms": None}  # no single PyTorch call computes this backward
 
 
 def write_wav(path: str, seed: int, frames: int, sr: int = 16000, fps: int = 25) -> None:
@@ -258,40 +411,273 @@ def phase_serving(seed: int, frames: int, workdir: str):
     return launches, wall * 1e3 / frames
 
 
+def phase_training(seed: int, workdir: str):
+    """`cli train` at Reso64 in-process, with the launch counts of its
+    train steps and of its validation renders, each read around the
+    trainer's own calls."""
+    import shutil
+
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.config import TrainConfig
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.train.step import build_step_fns
+    from nerf3dtalker_tpu_torch.train.trainer import Trainer
+    from nerf3dtalker_tpu_torch.utils import checkpoints as ckpt
+
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    log_dir = os.path.join(workdir, "train_logs")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    cfg = train_config()
+    argv = ["train", "--featmap-size", str(cfg.featmap_size), "--img-size",
+            str(cfg.pred_img_size), "--batch-size", "2", "--device", DEVICE,
+            "--epochs", str(TRAIN_EPOCHS), "--seed", str(seed), "--ckpt-dir", ckpt_dir,
+            "--log-dir", log_dir]
+    # (K1, K2) launches inside the trainer's epochs and validations: the
+    # wrappers only read the counts, they launch nothing themselves
+    by_path = {"train_steps": [0, 0], "validation": [0, 0]}
+
+    def counted(method, path):
+        def run(self, *args):
+            before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
+            out = method(self, *args)
+            by_path[path][0] += fr.fused_render_fwd.launches - before[0]
+            by_path[path][1] += fr.fused_render_bwd.launches - before[1]
+            return out
+        return run
+
+    methods = (Trainer.train_one_epoch, Trainer.validate)
+    Trainer.train_one_epoch = counted(methods[0], "train_steps")
+    Trainer.validate = counted(methods[1], "validation")
+    fr.fused_render_fwd.launches = 0
+    fr.fused_render_bwd.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.train_one_epoch, Trainer.validate = methods
+    k1, k2 = fr.fused_render_fwd.launches, fr.fused_render_bwd.launches
+    (k1_train, k2_train), (k1_val, k2_val) = by_path["train_steps"], by_path["validation"]
+    steps = TRAIN_EPOCHS * (TRAIN_FRAMES // 2)
+    val_renders = TRAIN_EPOCHS * VAL_FRAMES
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    log(f"training: cli train {TRAIN_EPOCHS} epochs, {steps} steps in {wall:.1f} s (whole cli "
+        f"call: data, VGG planes, model build, steps, validation, checkpoints); launches in "
+        f"the train steps K1 {k1_train}, K2 {k2_train} (expected {steps} each); in validation "
+        f"K1 {k1_val}, K2 {k2_val} (expected {val_renders}, 0); in the whole call K1 {k1}, "
+        f"K2 {k2}")
+    for r in records:
+        log("training epoch " + json.dumps({k: r[k] for k in (
+            "epoch", "total_loss", "vgg", "finite_step", "sec_per_step", "rays_per_s",
+            "SSIM", "PSNR")}))
+    if (k1_train, k2_train, k1_val, k2_val) != (steps, steps, val_renders, 0) \
+            or (k1, k2) != (k1_train + k1_val, k2_train + k2_val):
+        raise AssertionError(f"training launches: train steps K1 {k1_train} K2 {k2_train}, "
+                             f"validation K1 {k1_val} K2 {k2_val}, whole call K1 {k1} K2 {k2}")
+    if len(records) != TRAIN_EPOCHS:
+        raise AssertionError(f"{len(records)} epoch records, expected {TRAIN_EPOCHS}")
+    for r in records:
+        losses = [r[k] for k in ("bg_loss", "head_loss", "nonhead_loss", "vgg", "total_loss")]
+        if not all(map(math.isfinite, losses)) or r["finite_step"] != 1.0:
+            raise AssertionError(f"training epoch {r['epoch']}: {r}")
+    # every trainable leaf of both groups moved from its seeded init
+    fns = build_step_fns(cfg, TrainConfig(seed=seed), device=DEVICE)
+    init = fns.init(seed)
+    final = ckpt.load_checkpoint(ckpt_dir, map_location=DEVICE)
+    if final["step"] != steps:
+        raise AssertionError(f"checkpoint at step {final['step']}, expected {steps}")
+    still = [f"{group}.{name}" for group, module in (("nerf", init.nerf), ("audio", init.audio))
+             for name, p in module.named_parameters()
+             if p.requires_grad and torch.equal(p, final[group][name])]
+    n_leaves = sum(len(v) for v in init.params().values())
+    log(f"training: {n_leaves - len(still)} of {n_leaves} trainable leaves moved")
+    if still:
+        raise AssertionError(f"parameters that did not move: {still}")
+    return {"k1_train": k1_train, "k1_validation": k1_val, "k2": k2_train, "steps": steps}
+
+
+def _train_setup(seed: int, use_fused: bool = True):
+    """Step functions, a fresh state and one batch at Reso64 (B=2, VGG with
+    precomputed target planes), as the trainer builds them."""
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch.config import TrainConfig
+    from nerf3dtalker_tpu_torch.data.dataset import synthetic_dataset
+    from nerf3dtalker_tpu_torch.models.perceptual import load_vgg16
+    from nerf3dtalker_tpu_torch.train.step import build_step_fns
+
+    cfg, tc = train_config(), TrainConfig(seed=seed)
+    vgg = load_vgg16(seed=0, device=DEVICE)
+    data = synthetic_dataset(cfg, num_frames=2, seed=seed)
+    data.precompute_gt_vgg(vgg, compute_dtype=torch.bfloat16)
+    data.to_device(2, DEVICE)
+    fns = build_step_fns(cfg, tc, steps_per_epoch=4, vgg=vgg, device=DEVICE,
+                         use_fused=use_fused)
+    return fns, fns.init(seed), data.device_batch(np.arange(2)), vgg
+
+
+def phase_train_parity(seed: int):
+    """One deterministic train step (no jitter, no dropout) through K1/K2
+    against the plain path on the same weights and batch."""
+    import torch
+
+    fused_fns, fused_state, batch, _ = _train_setup(seed, use_fused=True)
+    plain_fns, plain_state, _, _ = _train_setup(seed, use_fused=False)
+    lf, gf = fused_fns.loss_and_grads(fused_state, batch)
+    lp, gp = plain_fns.loss_and_grads(plain_state, batch)
+    loss_f, loss_p = float(lf["total_loss"].detach()), float(lp["total_loss"].detach())
+    loss_rel = abs(loss_f - loss_p) / abs(loss_p)
+    names = {"nerf": [n for n, p in fused_state.nerf.named_parameters() if p.requires_grad],
+             "audio": [n for n, p in fused_state.audio.named_parameters() if p.requires_grad]}
+    worst, worst_name, errs = 0.0, "", {}
+    for group in ("nerf", "audio"):
+        for name, a, b in zip(names[group], gf[group], gp[group]):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"train step: non-finite gradient {group}.{name}")
+            rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            errs[f"{group}.{name}"] = rel
+            if rel > worst:
+                worst, worst_name = rel, f"{group}.{name}"
+    log(f"train step, kernels vs plain path: total loss {loss_f:.6f} vs "
+        f"{loss_p:.6f} (rel {loss_rel:.2e}, tolerance {STEP_LOSS_RTOL:.0e}); "
+        f"worst gradient leaf {worst_name} rel L2 {worst:.3e} (tolerance "
+        f"{STEP_GRAD_REL_L2:.0e}); audio path: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items() if k.startswith("audio.linear3")
+            or k == "nerf.fg_CD_predictor.fea_0_kernel"))
+    if loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_REL_L2:
+        raise AssertionError("the train step through the kernels disagrees with the plain path")
+    return {"loss_rel": loss_rel, "worst_grad_rel_l2": worst, "worst_leaf": worst_name}
+
+
+def phase_train_breakdown(seed: int):
+    """Steady-state train step at Reso64 B=2 and its parts, CUDA events."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.models.perceptual import vgg_perceptual_loss
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.train.step import apply_update, assemble_codes
+    from nerf3dtalker_tpu_torch.utils.guards import all_finite
+
+    fns, state, batch, vgg = _train_setup(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, cfg = 2, state.nerf.cfg
+    ms_step = cuda_ms(lambda: fns.train_step(state, batch, gen), reps=10, warmup=3)
+
+    nerf, audio, nr = state.nerf, state.audio, state.nerf.neural_render
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    with torch.no_grad():
+        style = audio(batch["mels"])
+        shape_code, appea_code = assemble_codes(batch, batch["audio_exp"])
+        noise = torch.rand(B, cfg.n_rays, cfg.num_sample_coarse + 1, generator=g, device=DEVICE)
+        pe, zd, zv = rays_and_pe(batch["xy"], batch["Rmat"], batch["Tvec"], batch["inv_inmat"],
+                                 noise)
+        packed = fr.pack_weights(dict(nerf.fg_CD_predictor.named_parameters()), shape_code,
+                                 appea_code, style)
+        feat, bg_alpha, _ = fr.fused_render_fwd(pe, zd, zv, packed)
+    gfeat = torch.randn(feat.shape, generator=g, device=DEVICE)
+    gb = torch.randn(B, cfg.n_rays, generator=g, device=DEVICE)
+    gd = torch.zeros(B, cfg.n_rays, device=DEVICE)   # the loss does not read depth
+    S = cfg.featmap_size
+    merge = (feat.reshape(B, S, S, cfg.featmap_nc) + bg_alpha.reshape(B, S, S, 1)
+             * nr.bg_featmap).detach().requires_grad_()
+    nr_params = list(nr.parameters())
+    img = cfg.pred_img_size
+    pred = torch.rand(B, img, img, 3, generator=g, device=DEVICE, requires_grad=True)
+    planes = [batch[f"vgg_f{i}"] for i in range(4)]
+    a_params = [p for p in audio.parameters() if p.requires_grad]
+    grads = {k: [torch.zeros_like(p) for p in v] for k, v in state.params().items()}
+
+    def decoder():
+        loss = nr(merge).sum() + nr(nr.bg_featmap).sum()
+        torch.autograd.grad(loss, [merge] + nr_params)
+
+    def vgg_step():
+        loss = vgg_perceptual_loss(vgg, pred, target_feats=planes, compute_dtype=torch.bfloat16)
+        torch.autograd.grad(loss, [pred])
+
+    def audio_step():
+        torch.autograd.grad(audio(batch["mels"], g).sum(), a_params)
+
+    def optimizer():
+        apply_update(state, grads, all_finite(grads["nerf"] + grads["audio"]))
+
+    with torch.no_grad():
+        parts = {"K1 fused_render_fwd": cuda_ms(lambda: fr.fused_render_fwd(pe, zd, zv, packed),
+                                                reps=5),
+                 "K2 fused_render_bwd": cuda_ms(lambda: fr.fused_render_bwd(
+                     pe, zd, zv, packed, gfeat, gb, gd, input_grads=False), reps=5)}
+    parts["decoder_x2_fwd_bwd"] = cuda_ms(decoder, reps=5)
+    parts["vgg_fwd_bwd"] = cuda_ms(vgg_step, reps=5)
+    parts["audio2style_fwd_bwd"] = cuda_ms(audio_step, reps=5)
+    parts["adam_fused_two_groups"] = cuda_ms(optimizer, reps=5)
+    rays_per_s = B * cfg.n_rays / (ms_step / 1e3)
+    rec = {"batch": B, "ms_per_step": ms_step, "rays_per_s": rays_per_s, "parts_ms": parts,
+           "parts_sum_ms": sum(parts.values()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("train_breakdown " + json.dumps(rec))
+    rec["profile"] = profile_steps(lambda: fns.train_step(state, batch, gen), steps=3)
+    return rec
+
+
+def profile_steps(step, steps: int):
+    """Device time by kernel over `steps` steady steps (torch.profiler), and
+    the device's busy share of the window's wall time. The profiler's own
+    host overhead lengthens the window, so the idle share is an upper
+    bound. Returns None when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / steps
+    if not kernels:
+        log("train_profile: the profiler recorded no device time (not measured)")
+        return None
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    rec = {"steps": steps, "wall_ms_per_step": wall_ms / steps, "device_ms_per_step": busy,
+           "device_idle_share": max(0.0, 1.0 - busy * steps / wall_ms),
+           "kernels_ms_per_step": {k[:90]: v for k, v in top}}
+    log("train_profile " + json.dumps(rec))
+    return rec
+
+
 def phase_breakdown(seed: int):
     """CUDA-event times of each stage of one Reso64 chunk (B=4)."""
-    import numpy as np
     import torch
 
     from nerf3dtalker_tpu_torch import cli
     from nerf3dtalker_tpu_torch.config import reso64
-    from nerf3dtalker_tpu_torch.ops.embedding import positional_encoding_rays
     from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
-    from nerf3dtalker_tpu_torch.ops.rays import gen_rays, sample_points, stratified_zvals
-    from nerf3dtalker_tpu_torch.utils.camera import base_cam, ray_grid
 
     cfg = reso64()
     dev = torch.device("cuda")
     model, a2s = cli.build_models(cfg, seed, dev)
     B = 4
-    xy, _ = ray_grid(64)
-    cam = base_cam(64)
-
-    def t(a, *reps):
-        return torch.as_tensor(np.tile(a, reps), device=dev)
-
-    xy_b, Rm, Tv, iv = (t(xy, B, 1, 1), t(cam.Rmat, B, 1, 1), t(cam.Tvec, B, 1),
-                        t(cam.inv_inmat, B, 1, 1))
+    xy_b, Rm, Tv, iv = base_camera(B)
     codes = [torch.zeros(B, n, device=dev) for n in (179, 127)] + [torch.zeros(B, 64, device=dev)]
     mels = torch.randn(8, 80, 16, generator=torch.Generator().manual_seed(seed)).to(dev)
     st = {}
     with torch.no_grad():
         def rays_pe():
-            rays = gen_rays(xy_b, Rm, Tv, iv)
-            sp = sample_points(rays, stratified_zvals(rays, 64, cfg.world_z1, cfg.world_z2))
-            pe = positional_encoding_rays(rays.origins, rays.directions, rays.lengths,
-                                          sp.zvals, 10, True, pad_to=64)
-            st["in"] = (pe.contiguous(), sp.z_dists.contiguous(), sp.zvals.contiguous())
+            st["in"] = rays_and_pe(xy_b, Rm, Tv, iv)
 
         def pack():
             st["w"] = fr.pack_weights(dict(model.fg_CD_predictor.named_parameters()), *codes)
@@ -340,15 +726,27 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
 
     build_info = phase_build()
-    kernel = phase_kernels(args.seed)
-    launches, ms_per_frame = phase_serving(args.seed, FRAMES, workdir)
-    kernel["launches"] = launches
+    k1 = phase_kernels(args.seed)
+    k2 = phase_kernel_bwd(args.seed)
+    serving_launches, ms_per_frame = phase_serving(args.seed, FRAMES, workdir)
+    train = phase_training(args.seed, workdir)
+    parity = phase_train_parity(args.seed)
+    step = phase_train_breakdown(args.seed)
     phase_breakdown(args.seed)
-    log(json.dumps({"serving": {"frames": FRAMES, "ms_per_frame": ms_per_frame,
-                                "build_s": build_info["build_s"], "nvcc": build_info["nvcc"]}}))
+    # launches on the main paths: K1 in serving, and in training (train
+    # steps, then validation renders); K2 in training
+    k1["launches"] = serving_launches + train["k1_train"] + train["k1_validation"]
+    k1["launches_by_path"] = {"serving": serving_launches, "train_steps": train["k1_train"],
+                              "validation": train["k1_validation"]}
+    k2["launches"] = train["k2"]
+    k2["launches_by_path"] = {"train_steps": train["k2"]}
+    log(json.dumps({"serving": {"frames": FRAMES, "ms_per_frame": ms_per_frame},
+                    "training": {"steps": train["steps"], "ms_per_step": step["ms_per_step"],
+                                 "rays_per_s": step["rays_per_s"], "parity": parity},
+                    "build_s": build_info["build_s"], "nvcc": build_info["nvcc"]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [k1, k2]}))
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
 """Command-line entry points of the port (counterpart of
 `nerf3dtalker_tpu/cli.py`): `python -m nerf3dtalker_tpu_torch.cli <command>`.
 
+  train   — train HeadNeRF + Audio2Style on a frame dataset (.npz of the
+            `data.dataset` schema, or a synthetic one), validate with SSIM /
+            PSNR, checkpoint under --ckpt-dir, print the last epoch's record
   animate — wav -> per-frame mel chunks -> Audio2Style -> chunked HeadNeRF
             render -> frames saved as .npy
 
-Runs on `cuda` unless `--device cpu` is given. On the GPU the model
-computes in bf16 through the fused render kernel; on the CPU in f32 through
-the plain path, as the JAX CLI does off the TPU.
+Runs on `cuda` unless `--device cpu` is given. On the GPU HeadNeRF computes
+in bf16 through the fused render kernels; on the CPU in f32 through the
+plain path.
 """
 
 from __future__ import annotations
@@ -92,9 +95,75 @@ def cmd_animate(args) -> dict:
     return rec
 
 
+def cmd_train(args) -> dict:
+    import numpy as np
+
+    from nerf3dtalker_tpu_torch.config import NeRFConfig, TrainConfig
+    from nerf3dtalker_tpu_torch.data.dataset import FrameDataset, synthetic_dataset
+    from nerf3dtalker_tpu_torch.train.trainer import Trainer
+    from nerf3dtalker_tpu_torch.utils.camera import ray_grid
+    from nerf3dtalker_tpu_torch.utils.checkpoints import has_checkpoint
+    from nerf3dtalker_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = NeRFConfig(featmap_size=args.featmap_size, pred_img_size=args.img_size)
+    tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
+                     ckpt_dir=args.ckpt_dir, use_vgg_loss=not args.no_vgg,
+                     vgg_weights=args.vgg_weights, seed=args.seed, log_dir=args.log_dir,
+                     guard_policy=args.guard_policy)
+    if args.data:
+        with np.load(args.data) as z:
+            arrays = {k: z[k] for k in z.files}
+        xy, _ = ray_grid(cfg.featmap_size)
+        n_val = max(1, len(arrays["images"]) // 10)
+        train = FrameDataset({k: v[:-n_val] for k, v in arrays.items()}, xy)
+        val = FrameDataset({k: v[-n_val:] for k, v in arrays.items()}, xy)
+    else:
+        print("no --data given; training on a synthetic sanity dataset")
+        train = synthetic_dataset(cfg, num_frames=8)
+        val = synthetic_dataset(cfg, num_frames=2, seed=1)
+
+    t = Trainer(cfg, tc, train, val, device=dev)
+    t.init()
+    if args.resume:
+        if has_checkpoint(args.ckpt_dir):
+            t.resume(args.ckpt_dir)
+            print(f"resumed from step {t.state.step} (epoch {t.start_epoch})")
+        else:
+            print(f"--resume: no checkpoint under {args.ckpt_dir}; starting fresh")
+    hist = t.train(args.epochs)
+    rec = hist[-1] if hist else {
+        "epochs_done": t.start_epoch, "step": t.state.step,
+        "note": "checkpoint already at/beyond --epochs; nothing to do"}
+    print(json.dumps(rec))
+    return rec
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="nerf3dtalker_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pt = sub.add_parser("train", help="train HeadNeRF + Audio2Style")
+    pt.add_argument("--featmap-size", type=int, default=32)
+    pt.add_argument("--img-size", type=int, default=256)
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--data", default="", help="frame dataset .npz (data.dataset schema); "
+                    "without it a synthetic one")
+    pt.add_argument("--batch-size", type=int, default=2)
+    pt.add_argument("--epochs", type=int, default=30)
+    pt.add_argument("--lr", type=float, default=1e-4)
+    pt.add_argument("--ckpt-dir", default="./logs/ckpt")
+    pt.add_argument("--no-vgg", action="store_true", help="train without the VGG loss")
+    pt.add_argument("--vgg-weights", default="",
+                    help="torchvision vgg16 features state_dict (.pth/.npz); "
+                    "without it a seeded random VGG16")
+    pt.add_argument("--resume", action="store_true",
+                    help="go on from the newest checkpoint in --ckpt-dir")
+    pt.add_argument("--log-dir", default="./logs", help="metrics.jsonl goes here")
+    pt.add_argument("--guard-policy", default="warn", choices=["warn", "rollback", "abort"],
+                    help="on non-finite steps: warn / roll back to the last checkpoint / abort")
+    pt.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pt.set_defaults(fn=cmd_train)
 
     pa = sub.add_parser("animate", help="wav -> talking-head frames (.npy)")
     pa.add_argument("--featmap-size", type=int, default=32)

@@ -1,5 +1,6 @@
-"""Model and audio configuration (copy of `nerf3dtalker_tpu/config.py`'s
-`NeRFConfig`, `reso32`, `reso64` and `AudioConfig`).
+"""Model, audio and training configuration (copy of
+`nerf3dtalker_tpu/config.py`'s `NeRFConfig`, `reso32`, `reso64`,
+`AudioConfig` and `TrainConfig`).
 
 Frozen dataclasses; field semantics mirror the reference HeadNeRF options
 (HeadNeRFOptions.py:5-34) and the audio hparams (hparams.py:15-60).
@@ -123,3 +124,34 @@ class AudioConfig:
     max_abs_value: float = 4.0
     fps: int = 25
     mel_step_size: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (HeadNeRFOptions.py:77-88 +
+    talker_trainer.py:665,722-727). The fields of the JAX `TrainConfig` that
+    name features the port does not have yet (native_prefetch,
+    use_tensorboard, trace_dir, trace_steps) are left out, and so are the
+    switches whose one value the port always takes: bf16 compute on the GPU,
+    precomputed GT VGG planes, the device cache (`train/trainer.py`), the
+    per-epoch metrics log, validation every epoch."""
+
+    # frame batch per optimizer step (the reference trains B=1; the JAX
+    # package's default is 2)
+    batch_size: int = 2
+    epochs: int = 30
+    lr: float = 1e-4
+    lr_audio: float = 1e-4
+    step_lr_every: int = 100      # StepLR: lr * gamma^(epoch // step_lr_every)
+    step_lr_gamma: float = 0.1
+    use_vgg_loss: bool = True
+    # torchvision `vgg16().features` state_dict (.pth) or an .npz of the same
+    # keys; empty -> a seeded random VGG16 (models/perceptual.py:load_vgg16)
+    vgg_weights: str = ""
+    seed: int = 0
+    ckpt_dir: str = "./logs/ckpt"
+    log_dir: str = "./logs"       # per-epoch metrics.jsonl
+    # on an epoch with non-finite steps: "warn" (the step already kept the
+    # params), "rollback" to the last checkpoint, or "abort" after a run of
+    # bad steps (utils/guards.py StepGuard)
+    guard_policy: str = "warn"

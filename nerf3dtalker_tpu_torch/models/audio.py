@@ -4,10 +4,14 @@
 
 Per-frame 80x16 mel chunks are flattened and the whole frame sequence runs
 through a 2-layer bidirectional LSTM as ONE sequence ([T, 80, 16] ->
-[1, T, 1280]), then three Linear+LeakyReLU(0.2) heads squeeze to 64.
-Inference only: dropout is off. `torch.nn.LSTM` uses the flax gate order
+[1, T, 1280]), then three Linear+LeakyReLU(0.2) heads squeeze to 64, each
+followed by dropout 0.5 in training. The dropout masks are drawn from the
+`generator` the caller passes (flax `nn.Dropout`: keep with probability 0.5
+and scale by 2); without one the model is deterministic, as at inference.
+`torch.nn.LSTM` uses the flax gate order
 (i, f, g, o); the flax cell has one bias per gate on the hidden projection,
-so the param bridge sets `bias_ih = 0` and `bias_hh` to the flax biases.
+so the param bridge sets `bias_ih = 0` and `bias_hh` to the flax biases,
+and `bias_ih` is kept out of training.
 """
 
 from __future__ import annotations
@@ -28,6 +32,11 @@ class BiLSTM(nn.Module):
         super().__init__()
         self.rnn = nn.LSTM(input_size, hidden_size, num_layers=num_layers,
                            bidirectional=True, batch_first=True)
+        # the flax cell has one bias per gate: bias_hh carries it, bias_ih
+        # stays zero and out of training (else the sum would move twice)
+        for name, p in self.rnn.named_parameters():
+            if name.startswith("bias_ih"):
+                p.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.rnn(x)[0]
@@ -35,6 +44,8 @@ class BiLSTM(nn.Module):
 
 class Audio2Style(nn.Module):
     """Mel chunks [T, 80, 16] (one frame sequence) -> style vectors [T, 64]."""
+
+    dropout_rate = 0.5
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
@@ -62,9 +73,15 @@ class Audio2Style(nn.Module):
             nn.init.normal_(lin.weight, std=lin.in_features ** -0.5, generator=generator)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, mels: torch.Tensor) -> torch.Tensor:
+    def forward(self, mels: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` (on the device of `mels`) turns the dropout on."""
         T = mels.shape[0]
         x = self.rnn(mels.reshape(T, 80 * 16)[None])[0]
+        keep = 1.0 - self.dropout_rate
         for lin in (self.linear1, self.linear2, self.linear3):
             x = F.leaky_relu(lin(x), 0.2)
+            if generator is not None:
+                u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+                x = torch.where(u < keep, x / keep, torch.zeros_like(x))
         return x

@@ -5,9 +5,12 @@ NetWorks/HeadNeRFNet.py:10-207).
 rays -> stratified samples -> positional encoding -> point MLP -> alpha
 composite to a `[B, S, S, feat_nc]` feature map -> neural-render upsampling,
 with the background as `fg_feat + bg_alpha * bg_featmap`. With `use_fused`
-the PE + MLP + composite go through `ops.kernels.fused_render`, whose CUDA
-kernel is compiled for the flagship dims: on the GPU another config raises,
-on the CPU the kernel's plain version takes any dims.
+the PE + MLP + composite go through `ops.kernels.fused_render.fused_render`:
+the forward kernel, and under autograd one backward-kernel launch per
+forward. The CUDA kernels are compiled for the flagship dims: on the GPU
+another config raises, on the CPU the kernels' plain versions take any dims.
+Training passes the stratified jitter as `noise`, drawn from the caller's
+generator.
 
 Not ported yet: hierarchical sampling, gaze and view-direction conditioning
 (the constructor raises on them).
@@ -94,7 +97,7 @@ class HeadNeRF(nn.Module):
             packed = fr.pack_weights(dict(self.fg_CD_predictor.named_parameters()), shape_code,
                                      appea_code, audio_style)
             cdt = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else torch.float32
-            feat, bg_alpha, depth = fr.fused_render_fwd(
+            feat, bg_alpha, depth = fr.fused_render(
                 pe.contiguous(), sp.z_dists.contiguous(), sp.zvals.contiguous(), packed, cdt)
             comp = CompositeResult(feat, bg_alpha, depth, None)
         else:

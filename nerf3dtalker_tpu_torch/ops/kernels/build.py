@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled for
 `sm_90a` into `build/kernels/lib<name>-<hash>.so` at the checkout's root
 the first time it is used; the hash of the source names the library, so an
-edited source builds anew and an unchanged one is loaded as it is. Nothing
-is compiled or loaded when this module is imported.
+edited source builds anew and an unchanged one is loaded as it is.
+`build_all` compiles several sources at once, one `nvcc` each. Nothing is
+compiled or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -47,23 +48,51 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> dict:
-    """Compile kernel `name` unless it is built already. Returns its record:
-    name, library, seconds, and the compiler's output (`-Xptxas -v`
-    registers and shared memory). Raises if `nvcc` fails."""
-    out = library_path(name)
-    if out.exists():
-        return {"name": name, "library": str(out), "seconds": 0.0, "log": "cached"}
+def sources() -> List[str]:
+    """The names of every kernel source, `csrc/<name>.cu`."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> List[dict]:
+    """Compile the kernels `names` (default: every source) that are not
+    built yet, one `nvcc` process each, all started at once. Returns one
+    record per kernel, in order: name, library, seconds, and the compiler's
+    output (`-Xptxas -v` registers and shared memory). Raises if any `nvcc`
+    fails, after every one has ended."""
+    names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return {"name": name, "library": str(out), "seconds": time.perf_counter() - t0,
-            "log": proc.stdout}
+    nvcc = None
+    running = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            running.append((name, out, None, None, 0.0))
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, proc, time.perf_counter()))
+    records, failed = [], []
+    for name, out, tmp, proc, t0 in running:
+        if proc is None:
+            records.append({"name": name, "library": str(out), "seconds": 0.0, "log": "cached"})
+            continue
+        log = proc.communicate()[0]
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        records.append({"name": name, "library": str(out), "seconds": secs, "log": log})
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return records
+
+
+def build(name: str) -> dict:
+    """Compile kernel `name` unless it is built already; its record."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

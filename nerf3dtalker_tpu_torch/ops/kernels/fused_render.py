@@ -1,11 +1,17 @@
-"""Fused NeRF point-MLP + volume compositing: the CUDA kernel's wrapper
-and its plain PyTorch version (port of
-`nerf3dtalker_tpu/ops/pallas/fused_render.py`).
+"""Fused NeRF point-MLP + volume compositing: the CUDA kernels' wrappers,
+their plain PyTorch versions and the autograd Function that joins them
+(port of `nerf3dtalker_tpu/ops/pallas/fused_render.py`).
 
-`fused_render_fwd` launches `csrc/fused_render_fwd.cu` on a CUDA tensor and
-takes `reference_render`, the plain version with the same arithmetic, on a
-CPU tensor. There is no other route: a CUDA tensor the kernel does not take
-raises.
+  fused_render_fwd  forward, `csrc/fused_render_fwd.cu`; plain version
+                    `reference_render`
+  fused_render_bwd  recompute backward, `csrc/fused_render_bwd.cu`; plain
+                    version `reference_render_bwd`
+  fused_render      `FusedRender`, the differentiable render: forward
+                    through the first, backward through the second
+
+A wrapper launches its kernel on a CUDA tensor and takes the plain version,
+with the same arithmetic, on a CPU tensor. There is no other route: a CUDA
+tensor the kernel does not take raises.
 
 Packed weight layout (kernels [in, out]; per-batch conditioning codes folded
 into biases by `pack_weights`, a linear op in front of the kernel):
@@ -23,7 +29,8 @@ into biases by `pack_weights`, a linear op in front of the kernel):
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,47 +98,156 @@ def _mm(a, b):
     return a.float() @ b.float()
 
 
-def _mlp_tile(pe, w, b0, b5, br1, dtype):
-    """Point MLP: pe [N, PE_PAD] -> (rgb [N, FEAT] f32, sigma [N] f32),
-    rounding to `dtype` where the TPU kernel rounds."""
+def _mlp_tile_stash(pe, w, b0, b5, br1, dtype):
+    """Point MLP over pe [N, PE_PAD], keeping what the backward needs:
+    (pe, xs = the 8 hidden activations, sigma_pre, r0, r1, rgb [N, FEAT]
+    f32). Rounds to `dtype` where the TPU kernel rounds."""
     pe = pe.to(dtype)
-    x = torch.relu(_mm(pe, w["w0p"]) + b0).to(dtype)
+    xs = [torch.relu(_mm(pe, w["w0p"]) + b0).to(dtype)]
     for i in range(4):
-        x = torch.relu(_mm(x, w["wh"][i]) + w["bh"][i]).to(dtype)
-    x = torch.relu(_mm(pe, w["w5p"]) + _mm(x, w["w5x"]) + b5).to(dtype)
+        xs.append(torch.relu(_mm(xs[-1], w["wh"][i]) + w["bh"][i]).to(dtype))
+    xs.append(torch.relu(_mm(pe, w["w5p"]) + _mm(xs[-1], w["w5x"]) + b5).to(dtype))
     for i in range(4, 6):
-        x = torch.relu(_mm(x, w["wh"][i]) + w["bh"][i]).to(dtype)
-    sigma = torch.relu(_mm(x, w["wd"])[:, 0] + w["bd"])
-    r = (_mm(x, w["wr0"]) + w["br0"]).to(dtype)
-    r = torch.relu(_mm(r, w["wr1"]) + br1).to(dtype)
-    rgb = _mm(r, w["wr2"]) + w["br2"]
-    return rgb, sigma
+        xs.append(torch.relu(_mm(xs[-1], w["wh"][i]) + w["bh"][i]).to(dtype))
+    sigma_pre = _mm(xs[-1], w["wd"])[:, 0] + w["bd"]
+    r0 = (_mm(xs[-1], w["wr0"]) + w["br0"]).to(dtype)
+    r1 = torch.relu(_mm(r0, w["wr1"]) + br1).to(dtype)
+    rgb = _mm(r1, w["wr2"]) + w["br2"]
+    return pe, xs, sigma_pre, r0, r1, rgb
+
+
+def _mlp_tile(pe, w, b0, b5, br1, dtype):
+    """Point MLP: pe [N, PE_PAD] -> (rgb [N, FEAT] f32, sigma [N] f32)."""
+    _, _, sigma_pre, _, _, rgb = _mlp_tile_stash(pe, w, b0, b5, br1, dtype)
+    return rgb, torch.relu(sigma_pre)
+
+
+def _composite_weights(sigma, z_dists):
+    """sigma, z_dists [R, NS] -> (alpha, t = 1 - alpha + 1e-10, exclusive
+    transmittance T, weights w = alpha * T)."""
+    alpha = 1.0 - torch.exp(-sigma * z_dists)
+    t = 1.0 - alpha + 1e-10
+    trans = torch.cumprod(torch.cat([torch.ones_like(t[:, :1]), t[:, :-1]], 1), 1)
+    return alpha, t, trans, alpha * trans
 
 
 def _composite(rgb, sigma, z_dists, zvals):
     """rgb [R*NS, FEAT], sigma [R*NS] -> feat [R, FEAT], bg_alpha, depth."""
     r, ns = z_dists.shape
-    sigma = sigma.reshape(r, ns)
-    alpha = 1.0 - torch.exp(-sigma * z_dists)
-    t = 1.0 - alpha + 1e-10
-    trans = torch.cumprod(torch.cat([torch.ones_like(t[:, :1]), t[:, :-1]], 1), 1)
-    w = alpha * trans
+    w = _composite_weights(sigma.reshape(r, ns), z_dists)[3]
     feat = torch.sum(rgb.reshape(r, ns, -1) * w[:, :, None], dim=1)
     return feat, 1.0 - w.sum(-1), (w * zvals).sum(-1)
 
 
+def _cast_weights(weights, compute_dtype):
+    return {k: (v.to(compute_dtype) if k.startswith("w") else v.float())
+            for k, v in weights.items()}
+
+
 def reference_render(pe, z_dists, zvals, weights, compute_dtype=torch.float32):
-    """Plain version of the kernel: the same arithmetic in PyTorch ops.
-    Shapes as `fused_render_fwd`; one batch row at a time."""
+    """Plain version of the forward kernel: the same arithmetic in PyTorch
+    ops. Shapes as `fused_render_fwd`; one batch row at a time."""
     B, R, ns, pe_pad = pe.shape
-    w = {k: (v.to(compute_dtype) if k.startswith("w") else v.float())
-         for k, v in weights.items()}
+    w = _cast_weights(weights, compute_dtype)
     outs = []
     for b in range(B):
         rgb, sigma = _mlp_tile(pe[b].reshape(R * ns, pe_pad), w, w["b0"][b],
                                w["b5"][b], w["br1"][b], compute_dtype)
         outs.append(_composite(rgb, sigma, z_dists[b], zvals[b]))
     return tuple(torch.stack(o) for o in zip(*outs))
+
+
+_CHUNK_RAYS = 512   # rays per chunk of the plain backward (32,768 points)
+
+
+def reference_render_bwd(pe, z_dists, zvals, weights, g_feat, g_bg, g_depth,
+                         compute_dtype=torch.float32, input_grads=True):
+    """Plain version of the backward kernel: recompute the forward, then
+    backpropagate the composite in f32 and the MLP with the TPU kernel's
+    rounding (`_bwd_kernel`): gradient activations in `compute_dtype`
+    (ReLU masks applied in f32 before the cast), `d_sigma_pre` in f32 before
+    its cast, weight and bias sums accumulated in f32.
+
+    Returns (d_pe, d_zd, d_zv, d_weights), f32; d_weights has the packed
+    layout of `pack_weights` (b0/b5/br1 per batch row). d_pe/d_zd/d_zv are
+    None unless `input_grads`. Works through `_CHUNK_RAYS` rays at a time
+    so that the activations of one chunk only are alive."""
+    B, R, ns, pe_pad = pe.shape
+    dt = compute_dtype
+    w = _cast_weights(weights, dt)
+    f32 = dict(dtype=torch.float32, device=pe.device)
+    dw = {k: torch.zeros(v.shape, **f32) for k, v in w.items()}
+    d_pe = torch.zeros(pe.shape, **f32) if input_grads else None
+    d_zd = torch.zeros(z_dists.shape, **f32) if input_grads else None
+    d_zv = torch.zeros(zvals.shape, **f32) if input_grads else None
+
+    def relu_mask(g, act):
+        return (g * (act.float() > 0).float()).to(dt)
+
+    def mm_t(a, b):           # a.T @ b over the point axis
+        return _mm(a.to(dt).T, b.to(dt))
+
+    def colsum(x):
+        return x.to(dt).float().sum(0)
+
+    for b in range(B):
+        for r0 in range(0, R, _CHUNK_RAYS):
+            rs = slice(r0, min(r0 + _CHUNK_RAYS, R))
+            zd, zv = z_dists[b, rs], zvals[b, rs]
+            n = zd.shape[0]
+            pe_c, xs, sigma_pre, x_r0, x_r1, rgb = _mlp_tile_stash(
+                pe[b, rs].reshape(n * ns, pe_pad), w, w["b0"][b], w["b5"][b],
+                w["br1"][b], dt)
+            # composite backward, f32
+            sig = torch.relu(sigma_pre).reshape(n, ns)
+            alpha, t, trans, wts = _composite_weights(sig, zd)
+            gf, gb, gd = g_feat[b, rs], g_bg[b, rs], g_depth[b, rs]
+            d_rgb = (wts[:, :, None] * gf[:, None, :]).reshape(n * ns, -1)
+            d_w = (rgb.reshape(n, ns, -1) * gf[:, None, :]).sum(-1) + zv * gd[:, None] \
+                - gb[:, None]
+            c = d_w * wts
+            incl = torch.flip(torch.cumsum(torch.flip(c, [1]), 1), [1])
+            suffix = torch.cat([incl[:, 1:], torch.zeros_like(incl[:, :1])], 1)
+            d_alpha = d_w * trans - suffix / t
+            one_m_a = 1.0 - alpha
+            if input_grads:
+                d_zd[b, rs] = d_alpha * sig * one_m_a
+                d_zv[b, rs] = wts * gd[:, None]
+            d_sigma_pre = (d_alpha * zd * one_m_a).reshape(-1) * (sigma_pre > 0).float()
+
+            # MLP backward, each gradient activation consumed as it is made
+            d_sig = d_sigma_pre.to(dt)[:, None]
+            d_rgb = d_rgb.to(dt)
+            dw["wr2"] += mm_t(x_r1, d_rgb)
+            dw["br2"] += colsum(d_rgb)
+            d_r1 = relu_mask(_mm(d_rgb, w["wr2"].T), x_r1)
+            dw["wr1"] += mm_t(x_r0, d_r1)
+            dw["br1"][b] += colsum(d_r1)
+            d_r0 = _mm(d_r1, w["wr1"].T).to(dt)
+            dw["wr0"] += mm_t(xs[7], d_r0)
+            dw["br0"] += colsum(d_r0)
+            dw["wd"] += mm_t(xs[7], d_sig)
+            dw["bd"] += colsum(d_sig)[0]
+            g = relu_mask(_mm(d_sig, w["wd"].T) + _mm(d_r0, w["wr0"].T), xs[7])   # g7
+            for layer, i in ((5, 7), (4, 6)):      # fea_7, fea_6
+                dw["wh"][layer] += mm_t(xs[i - 1], g)
+                dw["bh"][layer] += colsum(g)
+                g = relu_mask(_mm(g, w["wh"][layer].T), xs[i - 1])
+            g5 = g
+            dw["w5p"] += mm_t(pe_c, g5)
+            dw["w5x"] += mm_t(xs[4], g5)
+            dw["b5"][b] += colsum(g5)
+            g = relu_mask(_mm(g5, w["w5x"].T), xs[4])                            # g4
+            for layer in (3, 2, 1, 0):              # fea_4 .. fea_1
+                dw["wh"][layer] += mm_t(xs[layer], g)
+                dw["bh"][layer] += colsum(g)
+                g = relu_mask(_mm(g, w["wh"][layer].T), xs[layer])
+            dw["w0p"] += mm_t(pe_c, g)
+            dw["b0"][b] += colsum(g)
+            if input_grads:
+                d_pe[b, rs] = (_mm(g, w["w0p"].T) + _mm(g5, w["w5p"].T)).reshape(
+                    n, ns, pe_pad)
+    return d_pe, d_zd, d_zv, dw
 
 
 def _check(name, t, shape, dtype):
@@ -170,22 +286,29 @@ def _kernel_args(pe, z_dists, zvals, weights):
     return cast
 
 
-_launch_fn = None
+_c_fns: Dict[str, object] = {}
 
 
-def _c_fn():
-    """The C launcher, built, loaded and bound at the first launch."""
-    global _launch_fn
-    if _launch_fn is None:
+def _c_fn(name: str, argtypes):
+    """The C launcher `<name>_launch` of kernel `name`, built, loaded and
+    bound at its first launch."""
+    fn = _c_fns.get(name)
+    if fn is None:
         from nerf3dtalker_tpu_torch.ops.kernels import build
 
-        fn = build.load("fused_render_fwd").fused_render_fwd_launch
-        # every pointer as c_void_p: left undeclared, ctypes passes a Python
-        # int as a 32-bit C int and cuts the pointer
-        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(build.load(name), f"{name}_launch")
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _launch_fn = fn
-    return _launch_fn
+        _c_fns[name] = fn
+    return fn
+
+
+# every pointer as c_void_p: left undeclared, ctypes passes a Python int as
+# a 32-bit C int and cuts the pointer
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_P] * 21 + [_I, _I, _P]                           # ..., B, R, stream
+_BWD_ARGS = [_P] * 40 + [_I, _I, _I, ctypes.c_longlong, _P]    # ..., B, R, input_grads,
+#                                                                scratch bytes, stream
 
 
 def fused_render_fwd(
@@ -212,7 +335,8 @@ def fused_render_fwd(
     ptrs += [w[k].data_ptr() for k in _WEIGHTS + _BIASES]
     ptrs += [t.data_ptr() for t in (feat, bg, depth)]
     with torch.cuda.device(pe.device):   # the launch goes to the current device
-        err = _c_fn()(*ptrs, B, R, torch.cuda.current_stream().cuda_stream)
+        err = _c_fn("fused_render_fwd", _FWD_ARGS)(
+            *ptrs, B, R, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_render_fwd kernel launch failed: cudaError_t {err}")
     fused_render_fwd.launches += 1
@@ -220,3 +344,159 @@ def fused_render_fwd(
 
 
 fused_render_fwd.launches = 0
+
+
+def fused_render_bwd(
+    pe: torch.Tensor, z_dists: torch.Tensor, zvals: torch.Tensor,
+    weights: Dict[str, torch.Tensor],
+    g_feat: torch.Tensor,    # [B, R, FEAT] f32
+    g_bg: torch.Tensor,      # [B, R] f32
+    g_depth: torch.Tensor,   # [B, R] f32
+    compute_dtype: torch.dtype = torch.bfloat16,
+    input_grads: bool = True,
+    scratch: Optional[torch.Tensor] = None,
+):
+    """Backward of `fused_render_fwd` for the output cotangents: returns
+    (d_pe, d_zd, d_zv, d_weights), f32, as `reference_render_bwd`; the
+    first three are None unless `input_grads`.
+
+    A CPU tensor runs `reference_render_bwd`. A CUDA tensor launches the
+    kernel (bf16 operands, f32 accumulation) on the current stream, with a
+    scratch buffer that holds every activation and gradient activation of
+    the batch in bf16 (`scratch_bytes`): `scratch` when given (a uint8
+    tensor of that size, which `stash_chain_errors` can read afterwards),
+    else a new one."""
+    if pe.device.type == "cpu":
+        return reference_render_bwd(pe, z_dists, zvals, weights, g_feat, g_bg, g_depth,
+                                    compute_dtype, input_grads)
+    if compute_dtype != torch.bfloat16:
+        raise ValueError("the CUDA kernel computes in bfloat16")
+    w = _kernel_args(pe, z_dists, zvals, weights)
+    B, R = pe.shape[:2]
+    dev = pe.device
+    _check("g_feat", g_feat, (B, R, FEAT), torch.float32)
+    _check("g_bg", g_bg, (B, R), torch.float32)
+    _check("g_depth", g_depth, (B, R), torch.float32)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw = {k: torch.empty(v.shape, **f32) for k, v in w.items()}
+    ins = (torch.empty(pe.shape, **f32), torch.empty(z_dists.shape, **f32),
+           torch.empty(zvals.shape, **f32)) if input_grads else (None, None, None)
+    nbytes = scratch_bytes(B, R)
+    if scratch is None:
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    _check("scratch", scratch, (nbytes,), torch.uint8)
+    ptrs = [t.data_ptr() for t in (pe, z_dists, zvals, g_feat, g_bg, g_depth)]
+    ptrs += [w[k].data_ptr() for k in _WEIGHTS + _BIASES]
+    ptrs += [t.data_ptr() if t is not None else None for t in ins]
+    ptrs += [dw[k].data_ptr() for k in _WEIGHTS + _BIASES]
+    ptrs.append(scratch.data_ptr())
+    with torch.cuda.device(dev):
+        err = _c_fn("fused_render_bwd", _BWD_ARGS)(
+            *ptrs, B, R, int(input_grads), nbytes, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_render_bwd kernel launch failed: cudaError_t {err}")
+    fused_render_bwd.launches += 1
+    return (*ins, dw)
+
+
+fused_render_bwd.launches = 0
+
+# the bf16 stash at the head of the backward kernel's scratch: for each
+# name, [B * R * NS, width] values (`csrc/fused_render_bwd.cu:Stash`): pe,
+# 8 hidden, r0, r1 activations; d_rgb, d_r1, d_r0, 8 hidden gradient
+# activations and d_sigma
+_STASH_LAYOUT = ([("pe", PE_PAD)] + [(f"x{l}", H) for l in range(8)]
+                 + [("r0", H), ("r1", H2), ("drgb", FEAT), ("dr1", H2), ("dr0", H)]
+                 + [(f"g{l}", H) for l in range(8)] + [("dsig", 1)])
+_STASH_WIDTH = sum(width for _, width in _STASH_LAYOUT)
+# f32 values per reduction split: every weight gradient, and the column
+# sums of the biases (b0/b5/br1 once: each split lies in one batch row),
+# padded to 64 values
+_SPLIT_WIDTH = -(-(2 * PE_PAD * H + 8 * H * H + H * H2 + H2 * FEAT   # w0p w5p wh w5x wr0 wr1 wr2
+                   + H + 1 + 8 * H + H + H2 + FEAT) // 64) * 64      # wd bd bh b0 b5 br0 br1 br2
+
+
+def scratch_bytes(B: int, R: int) -> int:
+    """Bytes of device scratch one backward launch needs: the bf16 stash
+    plus the f32 partial sums of every reduction split, a split being at
+    most 64 whole rays of one batch row (`SPLIT_RAYS` in the kernel)."""
+    splits = B * R // math.gcd(R, 64)
+    return B * R * NS * _STASH_WIDTH * 2 + splits * _SPLIT_WIDTH * 4
+
+
+@torch.no_grad()
+def stash_chain_errors(scratch: torch.Tensor, weights: Dict[str, torch.Tensor],
+                       d_pe: torch.Tensor, d_weights: Dict[str, torch.Tensor],
+                       B: int, R: int) -> Dict[str, float]:
+    """K2's arithmetic apart from its forward recompute: after a
+    `fused_render_bwd(..., input_grads=True, scratch=scratch)` launch,
+    recompute in PyTorch (f32 products of the same bf16 values, the same
+    ReLU masks and bf16 casts) each gradient activation d_r1, d_r0,
+    g7 .. g0, d_pe and the gradients of w0p, b0 and wd from the kernel's own
+    stash, and return the relative L2 error of what the kernel wrote against
+    each. The ReLU mask flips between two forward recomputes do not enter:
+    both sides start from the kernel's activations. One stash array is
+    widened to f32 at a time."""
+    N = B * R * NS
+    flat = scratch[:N * _STASH_WIDTH * 2].view(torch.bfloat16)
+    views, off = {}, 0
+    for name, width in _STASH_LAYOUT:
+        views[name] = flat[off:off + N * width].view(N, width)
+        off += N * width
+    st = lambda name: views[name].float()
+    W = {k: v.float() for k, v in _cast_weights(weights, torch.bfloat16).items()}
+
+    def rel_l2(got, ref):
+        return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+    def masked(g, act):
+        return (g * (views[act] > 0).float()).to(torch.bfloat16).float()
+
+    errs = {"dr1": rel_l2(st("dr1"), masked(st("drgb") @ W["wr2"].T, "r1")),
+            "dr0": rel_l2(st("dr0"), (st("dr1") @ W["wr1"].T).to(torch.bfloat16).float()),
+            "g7": rel_l2(st("g7"), masked(st("dsig") * W["wd"].T + st("dr0") @ W["wr0"].T,
+                                          "x7"))}
+    upper = {6: W["wh"][5], 5: W["wh"][4], 4: W["w5x"], 3: W["wh"][3], 2: W["wh"][2],
+             1: W["wh"][1], 0: W["wh"][0]}    # g_l = relu'(x_l) * (g_{l+1} @ W_{l+1}^T)
+    for l in range(6, -1, -1):
+        errs[f"g{l}"] = rel_l2(st(f"g{l}"), masked(st(f"g{l + 1}") @ upper[l].T, f"x{l}"))
+    errs["d_pe"] = rel_l2(d_pe.reshape(N, PE_PAD),
+                          st("g0") @ W["w0p"].T + st("g5") @ W["w5p"].T)
+    errs["dw0p"] = rel_l2(d_weights["w0p"], st("pe").T @ st("g0"))
+    errs["db0"] = rel_l2(d_weights["b0"], st("g0").view(B, R * NS, H).sum(1))
+    errs["dwd"] = rel_l2(d_weights["wd"], st("x7").T @ st("dsig"))
+    return errs
+
+
+class FusedRender(torch.autograd.Function):
+    """Differentiable fused render: `fused_render_fwd` forward, one
+    `fused_render_bwd` launch backward. The packed weights come in as
+    positional tensors (a Function does not track tensors inside a dict), so
+    their gradients flow on through `pack_weights` to the MLP parameters and
+    the conditioning codes. Input gradients are computed only when
+    `ctx.needs_input_grad` asks for them."""
+
+    @staticmethod
+    def forward(ctx, compute_dtype, pe, z_dists, zvals, *packed):
+        weights = dict(zip(_WEIGHTS + _BIASES, packed))
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(pe, z_dists, zvals, *packed)
+        return fused_render_fwd(pe, z_dists, zvals, weights, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g_feat, g_bg, g_depth):
+        pe, z_dists, zvals, *packed = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:4]
+        d_pe, d_zd, d_zv, dw = fused_render_bwd(
+            pe, z_dists, zvals, dict(zip(_WEIGHTS + _BIASES, packed)),
+            g_feat.contiguous(), g_bg.contiguous(), g_depth.contiguous(),
+            ctx.compute_dtype, input_grads=any(need))
+        ins = [g if n else None for g, n in zip((d_pe, d_zd, d_zv), need)]
+        return (None, *ins, *(dw[k] for k in _WEIGHTS + _BIASES))
+
+
+def fused_render(pe, z_dists, zvals, weights: Dict[str, torch.Tensor],
+                 compute_dtype: torch.dtype = torch.bfloat16):
+    """`fused_render_fwd` with a backward (`FusedRender`)."""
+    return FusedRender.apply(compute_dtype, pe, z_dists, zvals,
+                             *(weights[k] for k in _WEIGHTS + _BIASES))

@@ -1,0 +1,198 @@
+"""Epoch-level training loop (port of `nerf3dtalker_tpu/train/trainer.py`,
+reference `Trainer`, talker_trainer.py:568-1241): epochs over the frame
+dataset, validation with SSIM and PSNR, checkpoints stamped with the
+validation metrics, resume, and the non-finite-step guard.
+
+Losses accumulate on the device and reach the host once per epoch. The
+per-step seed of the jitter and dropout generator is
+`(seed + epoch) * 100003 + step_in_epoch`, as the JAX trainer derives its
+step keys, so a resumed run draws what the uninterrupted one would.
+
+Not ported yet: whole epochs as one device program (`_cached_epoch`), the
+native prefetcher, TensorBoard, the profiler trace, LPIPS, validation image
+dumps, `from_checkpoint` and the mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import time
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from nerf3dtalker_tpu_torch.config import NeRFConfig, TrainConfig
+from nerf3dtalker_tpu_torch.data.dataset import FrameDataset, to_tensors
+from nerf3dtalker_tpu_torch.models.perceptual import load_vgg16
+from nerf3dtalker_tpu_torch.train.step import TrainState, build_step_fns
+from nerf3dtalker_tpu_torch.utils import checkpoints as ckpt
+from nerf3dtalker_tpu_torch.utils.device import resolve_device
+from nerf3dtalker_tpu_torch.utils.guards import StepGuard
+from nerf3dtalker_tpu_torch.utils.metrics import psnr, ssim_rgb
+
+log = logging.getLogger("nerf3dtalker_tpu_torch")
+
+# a frame set (with its VGG planes) up to this size lives on the device and
+# batches are gathered there; a larger one goes up batch by batch
+DEVICE_CACHE_BYTES = 6 * 1024**3
+
+
+def step_seed(seed: int, epoch: int, i: int) -> int:
+    return ((seed + epoch) * 100003 + i) & 0xFFFFFFFF
+
+
+class Trainer:
+    def __init__(
+        self,
+        nerf_cfg: NeRFConfig,
+        train_cfg: TrainConfig,
+        train_data: FrameDataset,
+        val_data: Optional[FrameDataset] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        self.device = resolve_device(device)
+        self.nerf_cfg, self.train_cfg = nerf_cfg, train_cfg
+        self.train_data, self.val_data = train_data, val_data
+        # a 1-frame subject still trains under the B=2 default
+        self.batch_size = max(1, min(train_cfg.batch_size, len(train_data)))
+        if self.batch_size != train_cfg.batch_size:
+            log.warning("batch_size %d > dataset size %d; training with B=%d",
+                        train_cfg.batch_size, len(train_data), self.batch_size)
+        if len(train_data) % self.batch_size:
+            log.warning("dataset size %d not divisible by batch %d: %d frame(s) dropped "
+                        "from each epoch", len(train_data), self.batch_size,
+                        len(train_data) % self.batch_size)
+        vgg = (load_vgg16(train_cfg.vgg_weights, seed=0, device=self.device)
+               if train_cfg.use_vgg_loss else None)
+        self.steps_per_epoch = max(1, len(train_data) // self.batch_size)
+        self.fns = build_step_fns(nerf_cfg, train_cfg, self.steps_per_epoch, vgg=vgg,
+                                  device=self.device)
+        if vgg is not None:
+            vgg_cdt = self.fns.compute_dtype if self.fns.compute_dtype == torch.bfloat16 else None
+            bg = 1.0 if nerf_cfg.bg_type == "white" else 0.0
+            # recompute planes made with other weights, background or dtype
+            fp = (float(next(vgg.parameters()).abs().sum()), bg, str(vgg_cdt))
+            for ds in (train_data, val_data):
+                if ds is not None and getattr(ds, "vgg_fingerprint", None) != fp:
+                    ds.precompute_gt_vgg(vgg, bg_value=bg, compute_dtype=vgg_cdt)
+                    ds.vgg_fingerprint = fp
+        self.guard = StepGuard(policy=train_cfg.guard_policy)
+        self.use_device_cache = train_data.nbytes() <= DEVICE_CACHE_BYTES
+        if self.use_device_cache:
+            train_data.to_device(self.batch_size, self.device)
+        self.state: Optional[TrainState] = None
+        self.history: list = []
+        self.start_epoch = 0
+        self.generator = torch.Generator(device=self.device)
+
+    # ------------------------------------------------------------- lifecycle
+
+    def init(self, seed: Optional[int] = None) -> None:
+        self.state = self.fns.init(self.train_cfg.seed if seed is None else seed)
+
+    def resume(self, ckpt_dir: str) -> int:
+        """Load the newest checkpoint under `ckpt_dir` into the state (call
+        `init` first); training goes on at the epoch of its step."""
+        payload = ckpt.load_checkpoint(ckpt_dir, map_location=self.device)
+        self.state.nerf.load_state_dict(payload["nerf"])
+        self.state.audio.load_state_dict(payload["audio"])
+        self.state.opt.load_state_dict(payload["opt"])
+        self.state.step = int(payload["step"])
+        self.start_epoch = self.state.step // self.steps_per_epoch
+        return self.state.step
+
+    def save(self, metrics: Optional[Dict] = None) -> None:
+        if not self.train_cfg.ckpt_dir:
+            return
+        ckpt.save_checkpoint(self.train_cfg.ckpt_dir, {
+            "nerf": self.state.nerf.state_dict(),
+            "audio": self.state.audio.state_dict(),
+            "opt": self.state.opt.state_dict(),
+            "config": {"nerf": dataclasses.asdict(self.nerf_cfg),
+                       "train": dataclasses.asdict(self.train_cfg)},
+            "metrics": metrics or {},
+        }, step=self.state.step)
+
+    # ------------------------------------------------------------- training
+
+    def _batches(self, epoch: int):
+        order = np.arange(len(self.train_data))
+        np.random.default_rng(self.train_cfg.seed + epoch).shuffle(order)
+        bs = self.batch_size
+        for i in range(0, len(order) - len(order) % bs, bs):
+            idx = order[i:i + bs]
+            if self.use_device_cache:
+                yield self.train_data.device_batch(idx)
+            else:
+                yield to_tensors(self.train_data.batch(idx), self.device)
+
+    def train_one_epoch(self, epoch: int) -> Dict[str, float]:
+        totals: Dict[str, torch.Tensor] = {}
+        n = 0
+        t0 = time.perf_counter()
+        for i, batch in enumerate(self._batches(epoch)):
+            self.generator.manual_seed(step_seed(self.train_cfg.seed, epoch, i))
+            losses = self.fns.train_step(self.state, batch, self.generator)
+            for k, v in losses.items():
+                totals[k] = totals[k] + v if k in totals else v
+            n += 1
+        avg = {k: float(v) / max(n, 1) for k, v in totals.items()}   # the epoch's one sync
+        avg["sec_per_step"] = (time.perf_counter() - t0) / max(n, 1)
+        avg["rays_per_s"] = self.batch_size * self.nerf_cfg.n_rays / max(avg["sec_per_step"], 1e-9)
+        self._last_epoch_steps = n
+        return avg
+
+    def validate(self) -> Dict[str, float]:
+        if self.val_data is None:
+            return {}
+        ssims, psnrs = [], []
+        for batch in self.val_data.epoch(1, rng=None, drop_last=False):
+            imgs, _ = self.fns.eval_step(self.state, to_tensors(batch, self.device))
+            gt = torch.as_tensor(batch["gt_rgb"], device=self.device)
+            for j in range(imgs.shape[0]):
+                ssims.append(float(ssim_rgb(imgs[j], gt[j])))
+                psnrs.append(float(psnr(imgs[j], gt[j])))
+        if not ssims:
+            return {}
+        return {"SSIM": float(np.mean(ssims)), "PSNR": float(np.mean(psnrs))}
+
+    def train(self, epochs: Optional[int] = None) -> list:
+        if self.state is None:
+            self.init()
+        epochs = epochs or self.train_cfg.epochs
+        mlog = None
+        if self.train_cfg.log_dir:
+            os.makedirs(self.train_cfg.log_dir, exist_ok=True)
+            mlog = open(os.path.join(self.train_cfg.log_dir, "metrics.jsonl"), "a")
+        try:
+            for e in range(self.start_epoch, epochs):
+                rec = {"epoch": e, **self.train_one_epoch(e)}
+                n = self._last_epoch_steps
+                n_bad = int(round(n * (1.0 - rec.get("finite_step", 1.0))))
+                if self.guard.epoch_check(n_bad, n, e) == "rollback":
+                    if self.train_cfg.ckpt_dir and ckpt.has_checkpoint(self.train_cfg.ckpt_dir):
+                        step = self.resume(self.train_cfg.ckpt_dir)
+                        log.warning("StepGuard: rolled back to checkpoint step %d after %d "
+                                    "non-finite step(s) in epoch %d", step, n_bad, e)
+                    else:
+                        log.warning("StepGuard: rollback requested but no checkpoint exists "
+                                    "yet; continuing with guarded params")
+                    rec["rollback"] = 1.0
+                else:
+                    val = self.validate()
+                    rec.update(val)
+                    self.save(metrics=val)
+                self.history.append(rec)
+                log.info("epoch %d: %s", e, rec)
+                if mlog is not None:
+                    mlog.write(json.dumps({"step": self.state.step, "time": time.time(),
+                                           **rec}) + "\n")
+                    mlog.flush()
+        finally:
+            if mlog is not None:
+                mlog.close()
+        return self.history

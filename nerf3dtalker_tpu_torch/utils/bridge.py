@@ -15,7 +15,9 @@ A flax tree is the variables dict `{"params": {...}}` of numpy arrays that
   Audio2Style  rnn/l{k}_{fwd,bwd}/i{i,f,g,o}/kernel       -> weight_ih_l{k}[_reverse]
                rnn/l{k}_{fwd,bwd}/h{i,f,g,o}/{kernel,bias} -> weight_hh, bias_hh
                (bias_ih = 0); linear{1,2,3}/{kernel,bias}  -> linear{1,2,3}
-Dense kernels are [in, out]; torch Linear weights are [out, in].
+  VGG16        conv{idx}/{kernel,bias}          -> features.{idx}.{weight,bias}
+Dense kernels are [in, out]; torch Linear weights are [out, in]. Conv
+kernels are HWIO; torch Conv2d weights are OIHW.
 """
 
 from __future__ import annotations
@@ -90,6 +92,16 @@ def audio2style_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
             sd[key.format("bias_hh")] = bh
     for i in (1, 2, 3):
         sd.update(_linear(p[f"linear{i}"], f"linear{i}"))
+    return sd
+
+
+def vgg16_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
+    """VGG16Features flax params -> the port VGG16Features' state_dict."""
+    sd = {}
+    for name, conv in _inner(tree).items():
+        idx = name[len("conv"):]
+        sd[f"features.{idx}.weight"] = np.transpose(_np(conv["kernel"]), (3, 2, 0, 1))
+        sd[f"features.{idx}.bias"] = _np(conv["bias"])
     return sd
 
 

@@ -41,3 +41,14 @@ def headnerf(seed=0, **cfg_kw):
         inv_inmat=jnp.asarray(cam.inv_inmat))
     params = jax.tree_util.tree_map(np.asarray, params)
     return mod, params, {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}
+
+
+@functools.lru_cache(maxsize=None)
+def vgg16(seed=0):
+    """Flax VGG16Features params, numpy leaves: the values of
+    `init_vgg16(key(seed))`, which traces its forward at 224x224; the conv
+    params do not depend on the input's size, so a 16x16 trace suffices."""
+    from nerf3dtalker_tpu.models.perceptual import VGG16Features
+
+    params = jax.jit(VGG16Features().init)(jax.random.key(seed), jnp.zeros((1, 16, 16, 3)))
+    return jax.tree_util.tree_map(np.asarray, params)

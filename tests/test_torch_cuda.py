@@ -21,6 +21,25 @@ from nerf3dtalker_tpu_torch.utils.camera import base_cam, ray_grid
 # can flip one rounding (2^-8 relative), which propagates through the later
 # layers
 RTOL = 5e-3
+# the backward kernel against its plain version. Both recompute the forward
+# with f32 sums in another order; a pre-activation within rounding of 0 then
+# lands on the other side of a ReLU, and a flipped mask passes or stops a
+# whole gradient element, which the chain carries to every lower layer of
+# that point. Summed over the points, the weight and bias gradients stay
+# within BWD_RTOL of their own max|ref|; at R=64 fewer points average the
+# flips out than on the main path (w0p, the bottom of the chain, was 1.3e-2
+# off here). d_zd and d_zv come from the composite alone. d_pe is per
+# point, so one flip can move a point's d_pe by its own size: it is held by
+# relative L2 error, and the chain itself by the stash test below
+BWD_RTOL = 2e-2
+D_PE_REL_L2 = 5e-2
+# K3 against autograd through the plain forward, both bf16: relative L2
+# error of each gradient leaf. Autograd rounds the gradient activations at
+# the same casts as K2 (bf16 at every activation), but the two forwards sum
+# in another order, so the ReLU mask flips of BWD_RTOL reach every leaf.
+# (Held against an f32 forward, this test measured 9.7e-2 on fea_0_kernel:
+# bf16 rounding through eight layers, which a bf16 reference shares.)
+GRAD_REL_L2 = 3e-2
 
 
 @pytest.fixture
@@ -112,3 +131,118 @@ def test_headnerf_fused_raises_on_card_at_other_dims(cuda):
     with torch.no_grad(), pytest.raises(ValueError, match="mlp_hidden=384"):
         model(*args)
     assert fr.fused_render_fwd.launches == before
+
+
+def _cotangents(dev, B, R, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return [t.to(dev) for t in (torch.randn(B, R, fr.FEAT, generator=g),
+                                torch.randn(B, R, generator=g),
+                                torch.randn(B, R, generator=g))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_grads", [False, True])
+def test_bwd_kernel_matches_plain_version(cuda, input_grads):
+    pe, zd, zv, packed = _kernel_inputs(cuda, B=2, R=64)
+    gf, gb, gd = _cotangents(cuda, 2, 64)
+    before = fr.fused_render_bwd.launches
+    with torch.no_grad():
+        out = fr.fused_render_bwd(pe, zd, zv, packed, gf, gb, gd, input_grads=input_grads)
+        ref = fr.reference_render_bwd(pe, zd, zv, packed, gf, gb, gd, torch.bfloat16,
+                                      input_grads=input_grads)
+    torch.cuda.synchronize()
+    assert fr.fused_render_bwd.launches == before + 1
+    pairs = [(k, out[3][k], ref[3][k]) for k in ref[3]]
+    if input_grads:
+        pairs += list(zip(("d_zd", "d_zv"), out[1:3], ref[1:3]))
+        assert torch.isfinite(out[0]).all()
+        assert _rel_l2(out[0], ref[0]) <= D_PE_REL_L2, f"d_pe: rel L2 {_rel_l2(out[0], ref[0]):.3e}"
+    else:
+        assert out[:3] == (None, None, None)
+    for name, a, b in pairs:
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        err, peak = float((a - b).abs().max()), float(b.abs().max())
+        assert err <= BWD_RTOL * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+def test_fused_render_grads_match_autograd_of_plain_forward(cuda):
+    """K3 (K1 forward, K2 backward) against autograd through the plain
+    forward in bf16: gradients of the MLP parameters and of the three codes."""
+    g = torch.Generator().manual_seed(3)
+    B, R = 2, 64
+    mlp = NeRFMLP(63 + 179, 127, hidden=fr.H, out_features=fr.FEAT)
+    mlp.reset_parameters(g)
+    with torch.no_grad():
+        for name, p in mlp.named_parameters():
+            if name.endswith("_bias"):
+                p.normal_(0.0, 0.1, generator=g)
+    mlp = mlp.to(cuda)
+    codes = [(torch.randn(B, n, generator=g) * 0.3).to(cuda) for n in (179, 127, 64)]
+    pe, zd, zv, _ = _kernel_inputs(cuda, B=B, R=R)
+    gf, gb, gd = _cotangents(cuda, B, R)
+
+    def grads(render, dtype):
+        leaves = list(mlp.parameters()) + [c.clone().requires_grad_() for c in codes]
+        packed = fr.pack_weights(dict(mlp.named_parameters()), *leaves[-3:])
+        feat, bg, depth = render(pe, zd, zv, packed, dtype)
+        loss = (feat * gf).sum() + (bg * gb).sum() + (depth * gd).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
+    fused = grads(fr.fused_render, torch.bfloat16)
+    assert (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    plain = grads(fr.reference_render, torch.bfloat16)
+    names = [n for n, _ in mlp.named_parameters()] + ["shape_code", "appea_code", "audio_style"]
+    for name, a, b in zip(names, fused, plain):
+        assert torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) <= GRAD_REL_L2, f"{name}: rel L2 {_rel_l2(a, b):.3e}"
+
+
+@pytest.mark.cuda
+def test_headnerf_fused_training_raises_on_card_at_other_dims(cuda):
+    """With gradients on, use_fused at dims the kernels are not compiled for
+    raises on the card and launches neither kernel."""
+    cfg = dataclasses.replace(reso64(), featmap_size=8, pred_img_size=32, mlp_hidden=128)
+    model = HeadNeRF(cfg, compute_dtype=torch.bfloat16, use_fused=True, device=cuda,
+                     generator=torch.Generator().manual_seed(0)).train()
+    xy, _ = ray_grid(8)
+    cam = base_cam(8)
+    args = [torch.as_tensor(a, device=cuda) for a in (xy,)]
+    args += [torch.zeros(1, n, device=cuda, requires_grad=True) for n in (179, 127, 64)]
+    args += [torch.as_tensor(a, device=cuda) for a in (cam.Rmat, cam.Tvec, cam.inv_inmat)]
+    before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
+    with pytest.raises(ValueError, match="mlp_hidden=384"):
+        model(*args)
+    assert (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches) == before
+
+
+# the kernel's gradient chain recomputed in PyTorch from the kernel's own
+# stash: the same bf16 values in, so only f32 summation order differs, and
+# a bf16 rounding flip moves an element by 2^-8 of itself
+STASH_REL_L2 = 1e-3
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_chain_matches_its_own_stash(cuda):
+    """Separates K2's arithmetic from the ReLU mask flips that the forward
+    recompute's summation order causes: each gradient activation, d_pe and
+    three weight/bias gradients against PyTorch on the kernel's stash
+    (`fr.stash_chain_errors`)."""
+    B, R = 2, 64
+    pe, zd, zv, packed = _kernel_inputs(cuda, B=B, R=R)
+    gf, gb, gd = _cotangents(cuda, B, R)
+    scratch = torch.empty(fr.scratch_bytes(B, R), dtype=torch.uint8, device=cuda)
+    with torch.no_grad():
+        d_pe, _, _, dw = fr.fused_render_bwd(pe, zd, zv, packed, gf, gb, gd,
+                                             input_grads=True, scratch=scratch)
+        errs = fr.stash_chain_errors(scratch, packed, d_pe, dw, B, R)
+    assert len(errs) == 14
+    for name, err in errs.items():
+        assert err <= STASH_REL_L2, f"{name}: rel L2 {err:.3e}"

@@ -33,8 +33,10 @@ def test_port_imports_no_jax(path):
 def test_kernel_source_is_in_the_package():
     from nerf3dtalker_tpu_torch.ops.kernels import build
 
-    assert (build.CSRC / "fused_render_fwd.cu").is_file()
-    assert build.library_path("fused_render_fwd").parent == build.BUILD_DIR
+    assert build.sources() == ["fused_render_bwd", "fused_render_fwd"]
+    for name in build.sources():
+        assert (build.CSRC / f"{name}.cu").is_file()
+        assert build.library_path(name).parent == build.BUILD_DIR
 
 
 @pytest.fixture
