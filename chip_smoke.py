@@ -9,8 +9,11 @@ Phases (any failure exits non-zero):
   2. kernels  — call each kernel's wrapper on the card at the shapes its
                 main path gives it (K1 at the Reso64 serving chunk, B=4;
                 K2 at the Reso64 training batch, B=2, both input_grads
-                variants), hold it against its plain PyTorch version on the
-                same inputs, and time both with CUDA events;
+                variants; K5-fwd at each of the three Reso64 decoder blocks
+                for the serving merge pass B=4, the training merge pass B=2
+                and the bg pass B=1; K5-bwd at each block for B=2 and B=1),
+                hold it against its plain PyTorch version on the same
+                inputs, and time both with CUDA events;
   3. serving  — drive `cli animate` at Reso64 (featmap 64, image 512, chunk
                 4) on a wav synthesized from the seed, with seeded weights;
                 count kernel launches, check the frames, and hold the first
@@ -23,7 +26,14 @@ Phases (any failure exits non-zero):
                 against the plain (kernel-free, autograd) path; time the
                 steady-state step (ms/step, rays/s) and its parts, and
                 profile 3 steps (device time by kernel, idle share);
-  5. records  — a per-stage time breakdown of one serving chunk, the
+  5. fused upsampler — serve 8 Reso64 frames through `animate_sequence`
+                with `HeadNeRF(use_fused=True, use_fused_upsampler=True)`
+                (K1 and K5-fwd launches counted, frames held against the
+                plain render path); one Reso64 B=2 gradient of the merge +
+                bg MSE loss through K1/K2/K5-fwd/K5-bwd (launches counted)
+                against the plain autograd path, every parameter leaf;
+  6. records  — a per-stage time breakdown of one serving chunk (the
+                plain and the fused decoder pair side by side), the
                 `kernels` line, the card's name and power limit, and last
                 the `{"ok": true, "device": ...}` line.
 Without CUDA it exits 1 before printing any result.
@@ -80,7 +90,32 @@ STASH_REL_L2 = 1e-3
 STEP_LOSS_RTOL = 1e-2
 STEP_GRAD_REL_L2 = 3e-2
 
-KERNELS = ("fused_render_fwd", "fused_render_bwd")
+# K5 (the fused upsampler kernels) against their plain versions, bf16; the
+# card tests (tests/test_torch_cuda.py) give each bound's reasoning. Both
+# round at the same places, so a different f32 summation order flips at
+# most a bf16 rounding (2^-8 of an element), which later layers carry:
+# outputs within UPS_RTOL of their own max|ref|. Backward: a pre-activation
+# within rounding of 0 can land on the other side of a leaky ReLU and scale
+# a gradient element by 0.2 instead of 1; in a weight gradient one such
+# flip moves one column by 0.8 |h g| (2.5e-2 of max|ref| at 3,072 pixels,
+# 1.0e-2 at 64x64 B=2), so weight and bias gradients are held by max error
+# over max|ref| (UPS_BWD_RTOL) and by relative L2 (UPS_BWD_REL_L2), the
+# per-pixel g_net by relative L2; g_rgb, from the linear stencils alone in
+# the same f32 order on both sides, within UPS_GRGB_RTOL
+UPS_RTOL = 1e-2
+UPS_BWD_RTOL = 5e-2
+UPS_BWD_REL_L2 = 1e-2
+UPS_GNET_REL_L2 = 2e-2
+UPS_GRGB_RTOL = 1e-5
+# one Reso64 B=2 gradient through K1/K2/K5 against the plain autograd path
+# (the NeRFMLP + composite and the NeuralRenderer decoder, which round each
+# product to bf16 before its bias where the kernels keep f32): the loss
+# within STEP_LOSS_RTOL, every gradient leaf within UPS_GRAD_REL_L2
+# relative L2 (the ReLU flips of K2 and the leaky-ReLU flips of K5 reach
+# every leaf)
+UPS_GRAD_REL_L2 = 3e-2
+
+KERNELS = ("fused_render_fwd", "fused_render_bwd", "fused_upsampler_fwd", "fused_upsampler_bwd")
 FRAMES = 8   # served at Reso64 in chunks of 4: two K1 launches
 DEVICE = "cuda"        # of the training phases
 TRAIN_EPOCHS = 2        # cli train at Reso64: 8 synthetic frames, B=2 -> 4 steps an epoch,
@@ -561,7 +596,9 @@ def phase_train_breakdown(seed: int):
     import torch
 
     from nerf3dtalker_tpu_torch.models.perceptual import vgg_perceptual_loss
+    from nerf3dtalker_tpu_torch.models.phase_renderer import extract_phase_params
     from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.ops.kernels.fused_upsampler import fused_upsampler
     from nerf3dtalker_tpu_torch.train.step import apply_update, assemble_codes
     from nerf3dtalker_tpu_torch.utils.guards import all_finite
 
@@ -598,6 +635,12 @@ def phase_train_breakdown(seed: int):
         loss = nr(merge).sum() + nr(nr.bg_featmap).sum()
         torch.autograd.grad(loss, [merge] + nr_params)
 
+    def decoder_fused():    # through K5-fwd and K5-bwd
+        pp = extract_phase_params(nr, 3)
+        loss = (fused_upsampler(merge, pp, 3, torch.bfloat16).sum()
+                + fused_upsampler(nr.bg_featmap, pp, 3, torch.bfloat16).sum())
+        torch.autograd.grad(loss, [merge] + nr_params)
+
     def vgg_step():
         loss = vgg_perceptual_loss(vgg, pred, target_feats=planes, compute_dtype=torch.bfloat16)
         torch.autograd.grad(loss, [pred])
@@ -614,6 +657,7 @@ def phase_train_breakdown(seed: int):
                  "K2 fused_render_bwd": cuda_ms(lambda: fr.fused_render_bwd(
                      pe, zd, zv, packed, gfeat, gb, gd, input_grads=False), reps=5)}
     parts["decoder_x2_fwd_bwd"] = cuda_ms(decoder, reps=5)
+    parts["decoder_x2_fused_upsampler_fwd_bwd"] = cuda_ms(decoder_fused, reps=5)
     parts["vgg_fwd_bwd"] = cuda_ms(vgg_step, reps=5)
     parts["audio2style_fwd_bwd"] = cuda_ms(audio_step, reps=5)
     parts["adam_fused_two_groups"] = cuda_ms(optimizer, reps=5)
@@ -659,13 +703,280 @@ def profile_steps(step, steps: int):
     return rec
 
 
+# ---- the fused upsampler (K5)
+
+def upsampler_weights(seed: int):
+    """Block weight lists of a seeded Reso64 NeuralRenderer (nonzero
+    biases) in the kernels' operand types, on the card."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.models.neural_renderer import NeuralRenderer
+    from nerf3dtalker_tpu_torch.models.phase_renderer import extract_phase_params
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_upsampler as fu
+
+    g = torch.Generator().manual_seed(seed + 2)
+    nr = NeuralRenderer(feat_nc=256, min_feat=32, featmap_size=64, img_size=512)
+    nr.reset_parameters(g)
+    with torch.no_grad():
+        for name, p in nr.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.1, generator=g)
+    pp = {k: v.detach() for k, v in extract_phase_params(nr.to("cuda"), 3).items()}
+    return [[(w.to(torch.bfloat16) if w.dim() == 2 else w.float()).contiguous()
+             for w in fu.block_weight_list(pp, i)] for i in range(3)]
+
+
+def upsampler_flops(i: int, B: int, C: int, Cn: int, backward: bool, hw: int = 64 * 64) -> float:
+    """Operations of block i's products (2 per multiply-add) for B Reso64
+    images: D1 and D2 on the level-i pixels, feat_layer and the rgb head on
+    the level-(i+1) ones (and rgb_0 for block 0). The backward recomputes
+    the three products, runs the input-gradient chain (g_up, g_h1, g_net,
+    g_nn and g_rgb_0) and forms one weight gradient per weight and pixel.
+    The stencils' few adds per element are not counted."""
+    ni = B * 4 ** i * hw
+    nf = 4 * ni
+    dense = ni * (C * 2 * C + 2 * C * 4 * C) + nf * C * Cn
+    heads = nf * Cn * 3 + (ni * C * 3 if i == 0 else 0)
+    if not backward:
+        return 2.0 * (dense + heads)
+    chain = nf * Cn * C + ni * 4 * C * 2 * C + ni * 2 * C * C + heads
+    return 2.0 * (dense + chain + dense + heads)
+
+
+def phase_upsampler_kernels(seed: int):
+    """K5-fwd and K5-bwd at each Reso64 decoder block, at the serving merge
+    pass (B=4; forward only), the training merge pass (B=2) and the bg pass
+    (B=1), held against the plain versions and timed; each block's input is
+    the plain decoder's output of the block before, from a seeded featmap."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_upsampler as fu
+
+    wls = upsampler_weights(seed)
+    g = torch.Generator().manual_seed(seed + 3)
+    bf = torch.bfloat16
+    net = torch.randn(4, 1, 64, 64, 256, generator=g).to("cuda", bf)
+    rgb = torch.zeros(4, 1, 64, 64, 3, dtype=bf, device="cuda")
+    ins = []
+    with torch.no_grad():
+        for i in range(3):
+            ins.append((net, rgb))
+            net, rgb = fu.reference_block_fwd(net, rgb, wls[i], i, bf)
+    recs = {"fwd": {}, "bwd": {}}
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for B in (4, 2, 1):
+        for i in range(3):
+            C, Cn = fu.KERNEL_DIMS[i]
+            net, rgb = (t[:B].contiguous() for t in ins[i])
+            wl = wls[i]
+            with torch.no_grad():
+                out = fu.phase_block_fwd(net, rgb, wl, i)
+                ref = fu.reference_block_fwd(net, rgb, wl, i, bf)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("net_next", "rgb_next"), out, ref):
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"fused_upsampler_fwd block {i} B={B}: non-finite {name}")
+                err, peak = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+                worst["fwd"] = max(worst["fwd"], err)
+                if not err <= UPS_RTOL * peak:
+                    raise AssertionError(f"fused_upsampler_fwd block {i} B={B} {name}: max_abs_err "
+                                         f"{err:.3e} over {UPS_RTOL:.0e} of max|ref| {peak:.3e}")
+            with torch.no_grad():
+                ms = cuda_ms(lambda: fu.phase_block_fwd(net, rgb, wl, i), reps=10)
+                plain_ms = cuda_ms(lambda: fu.reference_block_fwd(net, rgb, wl, i, bf), reps=3,
+                                   warmup=1)
+            flops = upsampler_flops(i, B, C, Cn, False)
+            nbytes = tensor_bytes(net, rgb if i else None, *wl, *out)
+            bound_ms, bound_by = bound(flops, nbytes)
+            recs["fwd"][(B, i)] = (ms, plain_ms, bound_ms, flops, nbytes)
+            log(f"fused_upsampler_fwd block {i} ({C}->{Cn}) B={B}: {ms:.3f} ms (plain "
+                f"{plain_ms:.3f} ms), bound {bound_ms:.3f} ms by {bound_by}; outputs within "
+                f"{UPS_RTOL:.0e} of max|ref|")
+            if B == 4:
+                continue
+            go = torch.Generator().manual_seed(seed + 10 * i + B)
+            gn = torch.randn(out[0].shape, generator=go).to("cuda", bf)
+            gr = torch.randn(out[1].shape, generator=go).to("cuda", bf)
+            with torch.no_grad():
+                kg = fu.phase_block_bwd(net, rgb, wl, i, gn, gr)
+                rg = fu.reference_block_bwd(net, rgb, wl, i, gn, gr, bf)
+            torch.cuda.synchronize()
+            rel = float((kg[0] - rg[0]).norm() / rg[0].norm())
+            rgb_err = float((kg[1] - rg[1]).abs().max())
+            w_max, w_l2 = 0.0, 0.0
+            for k, (a, b) in enumerate(zip(kg[2], rg[2])):
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"fused_upsampler_bwd block {i} B={B}: non-finite "
+                                         f"weight {k}")
+                err, peak = float((a - b).abs().max()), float(b.abs().max())
+                l2 = float((a - b).norm() / b.norm().clamp_min(1e-30))
+                worst["bwd"] = max(worst["bwd"], err)
+                w_max, w_l2 = max(w_max, err / peak), max(w_l2, l2)
+                if not (err <= UPS_BWD_RTOL * peak and l2 <= UPS_BWD_REL_L2):
+                    raise AssertionError(f"fused_upsampler_bwd block {i} B={B} weight {k}: "
+                                         f"max_abs_err {err:.3e} (max|ref| {peak:.3e}), "
+                                         f"rel L2 {l2:.3e}")
+            if not (torch.isfinite(kg[0]).all() and rel <= UPS_GNET_REL_L2
+                    and rgb_err <= UPS_GRGB_RTOL * float(rg[1].abs().max())):
+                raise AssertionError(f"fused_upsampler_bwd block {i} B={B}: g_net rel L2 "
+                                     f"{rel:.3e}, g_rgb max_abs_err {rgb_err:.3e}")
+            with torch.no_grad():
+                ms = cuda_ms(lambda: fu.phase_block_bwd(net, rgb, wl, i, gn, gr), reps=5)
+                plain_ms = cuda_ms(lambda: fu.reference_block_bwd(net, rgb, wl, i, gn, gr, bf),
+                                   reps=3, warmup=1)
+            flops = upsampler_flops(i, B, C, Cn, True)
+            nbytes = tensor_bytes(net, gn, gr, *wl, kg[0], kg[1] if i else None, *kg[2])
+            bound_ms, bound_by = bound(flops, nbytes)
+            recs["bwd"][(B, i)] = (ms, plain_ms, bound_ms, flops, nbytes)
+            log(f"fused_upsampler_bwd block {i} ({C}->{Cn}) B={B}: {ms:.3f} ms (plain "
+                f"{plain_ms:.3f} ms), bound {bound_ms:.3f} ms by {bound_by}; g_net rel L2 "
+                f"{rel:.2e}, g_rgb max_abs_err {rgb_err:.1e}, weights worst max_err/max|ref| "
+                f"{w_max:.2e}, worst rel L2 {w_l2:.2e}; scratch "
+                f"{fu.scratch_bytes(B, 64, 64, i, C, Cn) / 1e9:.3f} GB")
+
+    def entry(kind, B, name, line):
+        blocks = [recs[kind][(B, i)] for i in range(3)]
+        by_shape = {f"B{b}": [round(r[0], 4) for r in (recs[kind][(b, i)] for i in range(3))]
+                    for b in sorted({k[0] for k in recs[kind]}, reverse=True)}
+        return {"name": name, "route": "cuda",
+                "source": f"nerf3dtalker_tpu_torch/csrc/{name}.cu",
+                "replaces": f"nerf3dtalker_tpu/ops/pallas/fused_upsampler.py:{line}",
+                "max_abs_err": worst[kind],
+                # one decoder pass: the three block launches at B; the bound
+                # is the sum of the blocks' bounds, named by the larger of
+                # the pass's operations and bytes terms
+                "ms": sum(r[0] for r in blocks), "plain_ms": sum(r[1] for r in blocks),
+                "bound_ms": sum(r[2] for r in blocks),
+                "bound_by": bound(sum(r[3] for r in blocks), sum(r[4] for r in blocks))[1],
+                "library_ms": None,  # no PyTorch call computes an upsampler block
+                "pass_batch": B, "ms_per_block_by_batch": by_shape}
+
+    return entry("fwd", 4, "fused_upsampler_fwd", 237), entry("bwd", 2, "fused_upsampler_bwd", 295)
+
+
+def phase_serving_upsampler(seed: int, frames: int, workdir: str):
+    """8 Reso64 frames through `animate_sequence` with the fused upsampler
+    on (K1 + K5-fwd), counted, and held against the plain render path."""
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.config import reso64
+    from nerf3dtalker_tpu_torch.data.mel import per_frame_mel_chunks, read_wav_mono
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_upsampler as fu
+    from nerf3dtalker_tpu_torch.train.animate import animate_sequence, styles_from_mels
+    from nerf3dtalker_tpu_torch.utils.camera import base_cam
+
+    chunk = 4
+    wav = os.path.join(workdir, "speech_upsampler.wav")
+    write_wav(wav, seed, frames)
+    model, a2s = cli.build_models(reso64(), seed, torch.device("cuda"))
+    model.use_fused_upsampler = True
+    styles = styles_from_mels(a2s, per_frame_mel_chunks(*read_wav_mono(wav)))[:frames]
+    cam = base_cam(64)
+    cam_d = {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}
+    codes = (np.zeros((1, 179), np.float32), np.zeros((1, 127), np.float32))
+    animate_sequence(model, *codes, styles[:chunk], cam_d, chunk)      # warm-up: one chunk
+    fr.fused_render_fwd.launches = 0
+    fu.phase_block_fwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = animate_sequence(model, *codes, styles, cam_d, chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k5 = fr.fused_render_fwd.launches, fu.phase_block_fwd.launches
+    passes = 2 * -(-frames // chunk)
+    log(f"serving, fused upsampler: {len(img)} frames, {wall * 1e3 / frames:.2f} ms/frame "
+        f"(animate_sequence wall time); fused_render_fwd launches {k1} (expected "
+        f"{passes // 2}), fused_upsampler_fwd launches {k5} (expected {3 * passes}: 3 blocks x "
+        f"2 passes x {passes // 2} chunks)")
+    if (k1, k5) != (passes // 2, 3 * passes):
+        raise AssertionError(f"fused upsampler serving launched K1 {k1}, K5-fwd {k5}")
+    if img.shape != (frames, 512, 512, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"bad frames: shape {img.shape}")
+    model.use_fused = model.use_fused_upsampler = False
+    plain = animate_sequence(model, *codes, styles, cam_d, chunk)
+    diff = np.abs(plain - img)
+    log(f"serving, fused upsampler vs plain render path, {frames} frames: max_abs "
+        f"{diff.max():.3e} (tolerance {FRAME_MAX_ABS:.0e}), mean_abs {diff.mean():.3e} "
+        f"(tolerance {FRAME_MEAN_ABS:.0e}); frame mean {img.mean():.4f}")
+    if diff.max() > FRAME_MAX_ABS or diff.mean() > FRAME_MEAN_ABS:
+        raise AssertionError("the fused upsampler serving path disagrees with the plain "
+                             "render path")
+    return {"k1": k1, "k5": k5, "ms_per_frame": wall * 1e3 / frames,
+            "max_abs": float(diff.max()), "mean_abs": float(diff.mean())}
+
+
+def phase_gradient_upsampler(seed: int):
+    """One Reso64 B=2 gradient of the merge + bg MSE loss (the JAX test's
+    loss) through K1/K2 and K5-fwd/K5-bwd, counted, against the plain
+    autograd path on the same weights and inputs."""
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch.config import reso64
+    from nerf3dtalker_tpu_torch.models.headnerf import HeadNeRF
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_upsampler as fu
+
+    B = 2
+    model = HeadNeRF(reso64(), compute_dtype=torch.bfloat16, use_fused=True,
+                     use_fused_upsampler=True, device="cuda",
+                     generator=torch.Generator().manual_seed(seed))
+    xy, Rm, Tv, iv = base_camera(B)
+    rng = np.random.default_rng(seed)
+    codes = [torch.as_tensor(rng.standard_normal((B, n)).astype(np.float32) * 0.1, device="cuda")
+             for n in (179, 127, 64)]
+    names, leaves = zip(*model.named_parameters())
+
+    def run():
+        out = model(xy, *codes, Rm, Tv, iv)
+        loss = ((out["merge_img"] - 0.4) ** 2).mean() + ((out["bg_img"] - 1.0) ** 2).mean()
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    counters = (fr.fused_render_fwd, fr.fused_render_bwd, fu.phase_block_fwd, fu.phase_block_bwd)
+    for c in counters:
+        c.launches = 0
+    loss_f, grads_f = run()
+    torch.cuda.synchronize()
+    k1, k2, k5f, k5b = (c.launches for c in counters)
+    log(f"gradient, fused upsampler (Reso64 B={B}, merge + bg MSE): launches K1 {k1}, K2 {k2}, "
+        f"K5-fwd {k5f}, K5-bwd {k5b} (expected 1, 1, 6, 6)")
+    if (k1, k2, k5f, k5b) != (1, 1, 6, 6):
+        raise AssertionError(f"fused upsampler gradient launched K1 {k1}, K2 {k2}, K5-fwd {k5f}, "
+                             f"K5-bwd {k5b}")
+    model.use_fused = model.use_fused_upsampler = False
+    loss_p, grads_p = run()
+    loss_rel = abs(loss_f - loss_p) / abs(loss_p)
+    worst, worst_name, errs = 0.0, "", {}
+    for name, a, b in zip(names, grads_f, grads_p):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"fused upsampler gradient: non-finite {name}")
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        errs[name] = rel
+        if rel > worst:
+            worst, worst_name = rel, name
+    dec = {k: v for k, v in errs.items() if k.startswith("neural_render.")}
+    log(f"gradient, kernels vs plain path: loss {loss_f:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, "
+        f"tolerance {STEP_LOSS_RTOL:.0e}); worst leaf {worst_name} rel L2 {worst:.3e} (tolerance "
+        f"{UPS_GRAD_REL_L2:.0e}); worst decoder leaf {max(dec, key=dec.get)} "
+        f"{max(dec.values()):.3e}; fea_0_kernel {errs['fg_CD_predictor.fea_0_kernel']:.3e}")
+    if loss_rel > STEP_LOSS_RTOL or worst > UPS_GRAD_REL_L2:
+        raise AssertionError("the fused upsampler gradient disagrees with the plain autograd path")
+    return {"k1": k1, "k2": k2, "k5f": k5f, "k5b": k5b, "loss_rel": loss_rel,
+            "worst_grad_rel_l2": worst, "worst_leaf": worst_name}
+
+
 def phase_breakdown(seed: int):
     """CUDA-event times of each stage of one Reso64 chunk (B=4)."""
     import torch
 
     from nerf3dtalker_tpu_torch import cli
     from nerf3dtalker_tpu_torch.config import reso64
+    from nerf3dtalker_tpu_torch.models.phase_renderer import extract_phase_params
     from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.ops.kernels.fused_upsampler import fused_upsampler
 
     cfg = reso64()
     dev = torch.device("cuda")
@@ -685,19 +996,27 @@ def phase_breakdown(seed: int):
         def kernel():
             st["out"] = fr.fused_render_fwd(*st["in"], st["w"])
 
-        def decoder():
+        def merge_map():
             feat, bg_alpha, _ = st["out"]
-            merge = (feat.reshape(B, 64, 64, 256) + bg_alpha.reshape(B, 64, 64, 1)
-                     * model.neural_render.bg_featmap)
-            model.neural_render(merge)
+            return (feat.reshape(B, 64, 64, 256) + bg_alpha.reshape(B, 64, 64, 1)
+                    * model.neural_render.bg_featmap)
+
+        def decoder():
+            model.neural_render(merge_map())
             model.neural_render(model.neural_render.bg_featmap)
+
+        def decoder_fused():    # the two passes of HeadNeRF(use_fused_upsampler=True)
+            pp = extract_phase_params(model.neural_render, 3)
+            fused_upsampler(merge_map(), pp, 3, torch.bfloat16)
+            fused_upsampler(model.neural_render.bg_featmap, pp, 3, torch.bfloat16)
 
         def chunk():
             model(xy_b, codes[0], codes[1], codes[2], Rm, Tv, iv)
 
         times = {name: cuda_ms(fn, reps=5) for name, fn in
                  (("rays_pe", rays_pe), ("pack_weights", pack), ("fused_render_fwd", kernel),
-                  ("decoder_x2", decoder), ("chunk_total", chunk),
+                  ("decoder_x2", decoder), ("decoder_x2_fused_upsampler", decoder_fused),
+                  ("chunk_total", chunk),
                   ("audio2style_8_frames", lambda: a2s(mels)))}
     log("breakdown " + json.dumps({"chunk": B, "ms": times}))
 
@@ -732,21 +1051,33 @@ def main() -> int:
     train = phase_training(args.seed, workdir)
     parity = phase_train_parity(args.seed)
     step = phase_train_breakdown(args.seed)
+    k5f, k5b = phase_upsampler_kernels(args.seed)
+    ups_serving = phase_serving_upsampler(args.seed, FRAMES, workdir)
+    ups_grad = phase_gradient_upsampler(args.seed)
     phase_breakdown(args.seed)
-    # launches on the main paths: K1 in serving, and in training (train
-    # steps, then validation renders); K2 in training
-    k1["launches"] = serving_launches + train["k1_train"] + train["k1_validation"]
+    # launches on the main paths, each path's counts set to 0 just before it
+    # and read just after: K1 in serving, in training (train steps, then
+    # validation renders), in serving and in the gradient with the fused
+    # upsampler; K2 in training and in that gradient; K5 on the last two
     k1["launches_by_path"] = {"serving": serving_launches, "train_steps": train["k1_train"],
-                              "validation": train["k1_validation"]}
-    k2["launches"] = train["k2"]
-    k2["launches_by_path"] = {"train_steps": train["k2"]}
+                              "validation": train["k1_validation"],
+                              "serving_fused_upsampler": ups_serving["k1"],
+                              "gradient_fused_upsampler": ups_grad["k1"]}
+    k2["launches_by_path"] = {"train_steps": train["k2"],
+                              "gradient_fused_upsampler": ups_grad["k2"]}
+    k5f["launches_by_path"] = {"serving_fused_upsampler": ups_serving["k5"],
+                               "gradient_fused_upsampler": ups_grad["k5f"]}
+    k5b["launches_by_path"] = {"gradient_fused_upsampler": ups_grad["k5b"]}
+    for k in (k1, k2, k5f, k5b):
+        k["launches"] = sum(k["launches_by_path"].values())
     log(json.dumps({"serving": {"frames": FRAMES, "ms_per_frame": ms_per_frame},
+                    "fused_upsampler": {"serving": ups_serving, "gradient": ups_grad},
                     "training": {"steps": train["steps"], "ms_per_step": step["ms_per_step"],
                                  "rays_per_s": step["rays_per_s"], "parity": parity},
                     "build_s": build_info["build_s"], "nvcc": build_info["nvcc"]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(json.dumps({"kernels": [k1, k2]}))
+    log(json.dumps({"kernels": [k1, k2, k5f, k5b]}))
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

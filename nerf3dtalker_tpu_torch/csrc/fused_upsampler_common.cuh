@@ -1,0 +1,72 @@
+// Shared pieces of the fused upsampler kernels (fused_upsampler_fwd.cu,
+// fused_upsampler_bwd.cu): bf16 rounding, the leaky ReLU, the stencils'
+// arithmetic, phase-stack addressing and cp.async.
+//
+// Phase stacks. A level-l image of a batch row is held as 4^l phase planes
+// on the coarse Hc x Wc grid, [B, 4^l, Hc, Wc, C] with flat phase
+// p = pr * 2^l + pc and fine pixel (U, V) = (hc * 2^l + pr, wc * 2^l + pc).
+// The kernels address it as the fine image it is.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace fu {
+
+typedef __nv_bfloat16 bf16;
+
+// round to bf16 and back: every value the plain version holds in bf16
+__device__ __forceinline__ float rd(float x) { return __bfloat162float(__float2bfloat16(x)); }
+
+// leaky ReLU of a bf16 value: x, or bf16(0.2 x)
+__device__ __forceinline__ float lrelu(float x) { return x >= 0.0f ? x : rd(0.2f * x); }
+
+// (a + 2x + b) * 0.25 with the bf16 rounding of each op, as PyTorch
+// evaluates it on bf16 tensors (2x and the * 0.25 are exact)
+__device__ __forceinline__ float blur3(float a, float x, float b) {
+  return rd(rd(rd(a + 2.0f * x) + b) * 0.25f);
+}
+
+// 0.75 y + 0.25 a with the bf16 rounding of each op (bilinear 2x tap)
+__device__ __forceinline__ float bilin(float y, float a) {
+  return rd(rd(0.75f * y) + rd(0.25f * a));
+}
+
+// reflect (blur) and clamp (bilinear) neighbors on a fine axis of size S
+__device__ __forceinline__ int reflect_m1(int u) { return u == 0 ? 1 : u - 1; }
+__device__ __forceinline__ int reflect_p1(int u, int S) { return u == S - 1 ? S - 2 : u + 1; }
+
+// flat pixel index of fine pixel (U, V) of batch row b in a level-l stack
+__device__ __forceinline__ size_t pix(int b, int U, int V, int l, int Hc, int Wc) {
+  const int m = (1 << l) - 1;
+  const int p = ((U & m) << l) | (V & m);
+  return (((size_t)b << (2 * l)) + p) * (size_t)Hc * Wc + (size_t)(U >> l) * Wc + (V >> l);
+}
+
+// inverse of pix: the (b, U, V) of flat pixel n of a level-l stack
+__device__ __forceinline__ void unpix(size_t n, int l, int Hc, int Wc, int& b, int& U, int& V) {
+  const int wc = (int)(n % Wc);
+  size_t t = n / Wc;
+  const int hc = (int)(t % Hc);
+  t /= Hc;
+  const int p = (int)(t & ((1u << (2 * l)) - 1));
+  b = (int)(t >> (2 * l));
+  U = (hc << l) | (p >> l);
+  V = (wc << l) | (p & ((1 << l) - 1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+}  // namespace fu

@@ -7,8 +7,12 @@ composite to a `[B, S, S, feat_nc]` feature map -> neural-render upsampling,
 with the background as `fg_feat + bg_alpha * bg_featmap`. With `use_fused`
 the PE + MLP + composite go through `ops.kernels.fused_render.fused_render`:
 the forward kernel, and under autograd one backward-kernel launch per
-forward. The CUDA kernels are compiled for the flagship dims: on the GPU
-another config raises, on the CPU the kernels' plain versions take any dims.
+forward. With `use_fused_upsampler` the decoder runs phase-stacked through
+`ops.kernels.fused_upsampler` (one forward-kernel launch per upsampler block
+and pass, one backward-kernel launch each under autograd), when the image
+is 2, 4 or 8 times the featmap; off by default, as in the JAX package. The
+CUDA kernels are compiled for the flagship dims: on the GPU another config
+raises, on the CPU the kernels' plain versions take any dims.
 Training passes the stratified jitter as `noise`, drawn from the caller's
 generator.
 
@@ -26,16 +30,18 @@ from torch import nn
 from nerf3dtalker_tpu_torch.config import NeRFConfig
 from nerf3dtalker_tpu_torch.models.nerf_mlp import NeRFMLP
 from nerf3dtalker_tpu_torch.models.neural_renderer import NeuralRenderer
+from nerf3dtalker_tpu_torch.models.phase_renderer import extract_phase_params
 from nerf3dtalker_tpu_torch.ops.compositing import CompositeResult, alpha_composite
 from nerf3dtalker_tpu_torch.ops.embedding import positional_encoding, positional_encoding_rays
 from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+from nerf3dtalker_tpu_torch.ops.kernels.fused_upsampler import fused_upsampler
 from nerf3dtalker_tpu_torch.ops.rays import gen_rays, sample_points, stratified_zvals
 from nerf3dtalker_tpu_torch.utils.device import resolve_device
 
 
 class HeadNeRF(nn.Module):
     def __init__(self, cfg: NeRFConfig, compute_dtype: torch.dtype = torch.float32,
-                 use_fused: bool = False,
+                 use_fused: bool = False, use_fused_upsampler: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
         """Parameters are initialized on the CPU from `generator` (a CPU
@@ -48,6 +54,7 @@ class HeadNeRF(nn.Module):
                 "hierarchical sampling, gaze and view-direction conditioning "
                 "are not ported yet")
         self.cfg, self.compute_dtype, self.use_fused = cfg, compute_dtype, use_fused
+        self.use_fused_upsampler = use_fused_upsampler
         self.fg_CD_predictor = NeRFMLP(
             vp_channels=cfg.vp_channels, vd_channels=cfg.vd_channels,
             audio_channels=cfg.audio_style_dims, hidden=cfg.mlp_hidden,
@@ -73,6 +80,15 @@ class HeadNeRF(nn.Module):
                 f"featmap_nc={fr.FEAT}, num_sample_coarse={fr.NS}, vp_pe_dims=63; "
                 f"this config has {dims}")
         return True
+
+    @property
+    def _fusedup_ok(self) -> bool:
+        """The phase-stacked decoder needs an image 2, 4 or 8 times the
+        featmap; otherwise the plain decoder runs, as in the JAX package."""
+        cfg = self.cfg
+        ratio = cfg.pred_img_size // cfg.featmap_size
+        return (self.use_fused_upsampler and cfg.pred_img_size == ratio * cfg.featmap_size
+                and ratio in (2, 4, 8))
 
     def forward(
         self,
@@ -108,14 +124,23 @@ class HeadNeRF(nn.Module):
 
     def _render_maps(self, comp: CompositeResult, B: int, S: int) -> Dict[str, torch.Tensor]:
         """Merge with the bg featmap and decode; two decoder passes (merge,
-        bg), as in the JAX package."""
+        bg), through the fused upsampler when it is on, as in the JAX
+        package."""
         fg = comp.features.reshape(B, S, S, self.cfg.featmap_nc)
         bg_alpha = comp.bg_alpha.reshape(B, S, S, 1)
         bg_featmap = self.neural_render.bg_featmap
         merge = fg + bg_alpha * bg_featmap
+        if self._fusedup_ok:
+            n_blocks = self.cfg.n_upsample_blocks
+            pp = extract_phase_params(self.neural_render, n_blocks)
+
+            def decode(x):
+                return fused_upsampler(x, pp, n_blocks, self.compute_dtype)
+        else:
+            decode = self.neural_render
         return {
-            "merge_img": self.neural_render(merge),        # [B, img, img, 3]
-            "bg_img": self.neural_render(bg_featmap),      # [1, img, img, 3]
+            "merge_img": decode(merge),                    # [B, img, img, 3]
+            "bg_img": decode(bg_featmap),                  # [1, img, img, 3]
             "bg_alpha": bg_alpha,
             "depth": comp.depth.reshape(B, S, S),
         }

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled for
 `sm_90a` into `build/kernels/lib<name>-<hash>.so` at the checkout's root
-the first time it is used; the hash of the source names the library, so an
-edited source builds anew and an unchanged one is loaded as it is.
+the first time it is used; the hash of the source and of the shared
+headers (`csrc/*.cuh`) names the library, so an edited source builds anew
+and an unchanged one is loaded as it is.
 `build_all` compiles several sources at once, one `nvcc` each. Nothing is
 compiled or loaded when this module is imported.
 """
@@ -44,6 +45,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

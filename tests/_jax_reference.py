@@ -52,3 +52,34 @@ def vgg16(seed=0):
 
     params = jax.jit(VGG16Features().init)(jax.random.key(seed), jnp.zeros((1, 16, 16, 3)))
     return jax.tree_util.tree_map(np.asarray, params)
+
+
+@functools.lru_cache(maxsize=None)
+def neural_renderer(featmap=8, img=64, feat_nc=32, min_feat=8, seed=0):
+    """(module, params with numpy leaves) of the JAX NeuralRenderer at the
+    size `tests/test_phase_upsampler.py` uses."""
+    from nerf3dtalker_tpu.models.neural_renderer import NeuralRenderer
+
+    mod = NeuralRenderer(feat_nc=feat_nc, out_dim=3, final_actvn=True, min_feat=min_feat,
+                         featmap_size=featmap, img_size=img, bg_type="white")
+    params = jax.jit(mod.init)(jax.random.key(seed), jnp.zeros((1, featmap, featmap, feat_nc)))
+    return mod, jax.tree_util.tree_map(np.asarray, params)
+
+
+@functools.lru_cache(maxsize=None)
+def phase_block(i, bf16=False):
+    """Jitted (forward, vjp) of the JAX `phase_block_forward` of block i
+    over a leading batch axis: forward(net, rgb, bp) -> (net_next,
+    rgb_next); vjp(net, rgb, bp, g_net_next, g_rgb_next) -> (g_net, g_rgb,
+    g_bp), the weight gradients summed over the batch."""
+    from nerf3dtalker_tpu.models.phase_renderer import phase_block_forward
+
+    cdt = jnp.bfloat16 if bf16 else jnp.float32
+
+    def fwd(net, rgb, bp):
+        return jax.vmap(lambda n, r: phase_block_forward(n, r, bp, i, cdt))(net, rgb)
+
+    def vjp(net, rgb, bp, gn, gr):
+        return jax.vjp(fwd, net, rgb, bp)[1]((gn, gr))
+
+    return jax.jit(fwd), jax.jit(vjp)

@@ -14,6 +14,7 @@ from nerf3dtalker_tpu_torch.config import reso64
 from nerf3dtalker_tpu_torch.models.headnerf import HeadNeRF
 from nerf3dtalker_tpu_torch.models.nerf_mlp import NeRFMLP
 from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+from nerf3dtalker_tpu_torch.ops.kernels import fused_upsampler as fu
 from nerf3dtalker_tpu_torch.utils.camera import base_cam, ray_grid
 
 # bf16 tolerance: max abs error over each output's own max|ref|. Both
@@ -40,6 +41,33 @@ D_PE_REL_L2 = 5e-2
 # (Held against an f32 forward, this test measured 9.7e-2 on fea_0_kernel:
 # bf16 rounding through eight layers, which a bf16 reference shares.)
 GRAD_REL_L2 = 3e-2
+# the fused upsampler kernels (K5) against their plain versions, bf16. Both
+# round to bf16 after every product + bias and every elementwise op; a
+# different f32 summation order can flip one rounding (2^-8 of the
+# element), which later layers carry: outputs within UPS_RTOL of their own
+# max|ref| (measured up to 4.7e-3 on the card). Backward: the two recompute
+# the forward with f32 sums in another order, and a pre-activation within
+# rounding of 0 that lands on the other side of a leaky ReLU scales a
+# gradient element by 0.2 instead of 1. In a weight gradient that moves one
+# column by 0.8 |h g| of that pixel: at this test's 3,072 level-1 pixels
+# one flip was 2.46e-2 of dw2's max|ref| (0.55 of the error in that one
+# column), while the relative L2 error stayed at 2.1e-3. So weight and bias
+# gradients are held by max error over max|ref| within UPS_BWD_RTOL and by
+# relative L2 within UPS_BWD_REL_L2; g_net is per pixel, held by relative
+# L2; g_rgb comes from the linear stencils alone, in f32 and in the same
+# order on both sides (measured exact).
+UPS_RTOL = 1e-2
+UPS_BWD_RTOL = 5e-2
+UPS_BWD_REL_L2 = 1e-2
+UPS_GNET_REL_L2 = 2e-2
+UPS_GRGB_RTOL = 1e-5
+# HeadNeRF with K1 + K5 against the plain path (NeRFMLP + composite, the
+# NeuralRenderer decoder, which rounds each product to bf16 before its
+# bias, where the kernels keep f32): images in [0, 1] within UPS_IMG_ABS;
+# every gradient leaf within UPS_HEAD_GRAD_REL_L2 relative L2 (the ReLU and
+# leaky-ReLU flips of both kernels reach every leaf)
+UPS_IMG_ABS = 5e-2
+UPS_HEAD_GRAD_REL_L2 = 5e-2
 
 
 @pytest.fixture
@@ -246,3 +274,115 @@ def test_bwd_kernel_chain_matches_its_own_stash(cuda):
     assert len(errs) == 14
     for name, err in errs.items():
         assert err <= STASH_REL_L2, f"{name}: rel L2 {err:.3e}"
+
+
+def _upsampler_block(dev, i, B=2, Hc=24, Wc=16, seed=0):
+    """Block i of the Reso64 decoder widths on a 24x16 featmap grid (3x2
+    tiles at level 0, 12x8 at level 2: interior halos and all four image
+    edges): (net, rgb, weight list, g_net', g_rgb'), seeded."""
+    C, Cn = fu.KERNEL_DIMS[i]
+    g = torch.Generator().manual_seed(seed + i)
+    P = 4 ** i
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    wl = [r(C, 2 * C, scale=C ** -0.5), r(2 * C, scale=0.1), r(2 * C, 4 * C, scale=(2 * C) ** -0.5),
+          r(4 * C, scale=0.1), r(C, Cn, scale=C ** -0.5), r(Cn, scale=0.1),
+          r(Cn, 3, scale=Cn ** -0.5), r(3, scale=0.1)]
+    if i == 0:
+        wl += [r(C, 3, scale=C ** -0.5), r(3, scale=0.1)]
+    bf = torch.bfloat16
+    net, rgb = r(B, P, Hc, Wc, C).to(bf), r(B, P, Hc, Wc, 3, scale=0.5).to(bf)
+    gn, gr = r(B, 4 * P, Hc, Wc, Cn).to(bf), r(B, 4 * P, Hc, Wc, 3).to(bf)
+    return net.to(dev), rgb.to(dev), [w.to(dev) for w in wl], gn.to(dev), gr.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_upsampler_fwd_kernel_matches_plain_version(cuda, i):
+    net, rgb, wl, _, _ = _upsampler_block(cuda, i)
+    before = fu.phase_block_fwd.launches
+    with torch.no_grad():
+        out = fu.phase_block_fwd(net, rgb, wl, i)
+        ref = fu.reference_block_fwd(net, rgb, wl, i, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fu.phase_block_fwd.launches == before + 1
+    for name, a, b in zip(("net_next", "rgb_next"), out, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.bfloat16, name
+        assert torch.isfinite(a).all(), name
+        err, peak = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        assert err <= UPS_RTOL * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_upsampler_bwd_kernel_matches_plain_version(cuda, i):
+    net, rgb, wl, gn, gr = _upsampler_block(cuda, i)
+    before = fu.phase_block_bwd.launches
+    with torch.no_grad():
+        g_net, g_rgb, gw = fu.phase_block_bwd(net, rgb, wl, i, gn, gr)
+        r_net, r_rgb, rw = fu.reference_block_bwd(net, rgb, wl, i, gn, gr, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fu.phase_block_bwd.launches == before + 1
+    assert torch.isfinite(g_net).all()
+    assert _rel_l2(g_net, r_net) <= UPS_GNET_REL_L2, f"g_net: rel L2 {_rel_l2(g_net, r_net):.3e}"
+    assert float((g_rgb - r_rgb).abs().max()) <= UPS_GRGB_RTOL * float(r_rgb.abs().max())
+    for k, (a, b) in enumerate(zip(gw, rw)):
+        assert a.shape == b.shape and a.dtype == torch.float32, k
+        assert torch.isfinite(a).all(), k
+        err, peak = float((a - b).abs().max()), float(b.abs().max())
+        assert err <= UPS_BWD_RTOL * peak, f"weight {k}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+        assert _rel_l2(a, b) <= UPS_BWD_REL_L2, f"weight {k}: rel L2 {_rel_l2(a, b):.3e}"
+
+
+@pytest.mark.cuda
+def test_upsampler_kernels_raise_on_card_at_other_widths(cuda):
+    """Another width, a grid that is not whole tiles, or f32 compute raise
+    on the card and launch nothing."""
+    net, rgb, wl, gn, gr = _upsampler_block(cuda, 2, B=1, Hc=8, Wc=8)
+    before = (fu.phase_block_fwd.launches, fu.phase_block_bwd.launches)
+    narrow = [w[..., :16] if w.dim() == 2 and w.shape[1] == 32 else w for w in wl]
+    narrow[5] = wl[5][:16]
+    narrow[6] = wl[6][:16]
+    with pytest.raises(ValueError, match="compiled for"):
+        fu.phase_block_fwd(net, rgb, narrow, 2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fu.phase_block_fwd(net[:, :, :4, :4].contiguous(), rgb[:, :, :4, :4].contiguous(), wl, 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fu.phase_block_bwd(net.float(), rgb.float(), wl, 2, gn.float(), gr.float(), torch.float32)
+    assert (fu.phase_block_fwd.launches, fu.phase_block_bwd.launches) == before
+
+
+@pytest.mark.cuda
+def test_headnerf_fused_upsampler_matches_plain_path_on_card(cuda):
+    """HeadNeRF at featmap 16 / image 128 (the Reso64 widths, three blocks)
+    in bf16 through K1 + K5 (K2 + K5-bwd under autograd) against the plain
+    path: images and the gradient of every parameter."""
+    cfg = dataclasses.replace(reso64(), featmap_size=16, pred_img_size=128)
+    model = HeadNeRF(cfg, compute_dtype=torch.bfloat16, use_fused=True, use_fused_upsampler=True,
+                     device=cuda, generator=torch.Generator().manual_seed(0))
+    xy, _ = ray_grid(16)
+    cam = base_cam(16)
+    g = torch.Generator().manual_seed(1)
+    args = [torch.as_tensor(xy, device=cuda)]
+    args += [(torch.randn(1, n, generator=g) * 0.1).to(cuda) for n in (179, 127, 64)]
+    args += [torch.as_tensor(a, device=cuda) for a in (cam.Rmat, cam.Tvec, cam.inv_inmat)]
+    names, leaves = zip(*model.named_parameters())
+
+    def run():
+        out = model(*args)
+        loss = ((out["merge_img"] - 0.4) ** 2).mean() + ((out["bg_img"] - 1.0) ** 2).mean()
+        return out["merge_img"].detach(), torch.autograd.grad(loss, leaves)
+
+    before = (fu.phase_block_fwd.launches, fu.phase_block_bwd.launches)
+    img_f, grads_f = run()
+    assert (fu.phase_block_fwd.launches - before[0], fu.phase_block_bwd.launches - before[1]) \
+        == (6, 6)
+    model.use_fused = model.use_fused_upsampler = False
+    img_p, grads_p = run()
+    assert img_f.shape == (1, 128, 128, 3)
+    assert float((img_f - img_p).abs().max()) <= UPS_IMG_ABS
+    for name, a, b in zip(names, grads_f, grads_p):
+        assert torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) <= UPS_HEAD_GRAD_REL_L2, f"{name}: rel L2 {_rel_l2(a, b):.3e}"

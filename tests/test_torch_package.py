@@ -33,7 +33,8 @@ def test_port_imports_no_jax(path):
 def test_kernel_source_is_in_the_package():
     from nerf3dtalker_tpu_torch.ops.kernels import build
 
-    assert build.sources() == ["fused_render_bwd", "fused_render_fwd"]
+    assert build.sources() == ["fused_render_bwd", "fused_render_fwd", "fused_upsampler_bwd",
+                               "fused_upsampler_fwd"]
     for name in build.sources():
         assert (build.CSRC / f"{name}.cu").is_file()
         assert build.library_path(name).parent == build.BUILD_DIR
