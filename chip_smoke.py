@@ -32,7 +32,19 @@ Phases (any failure exits non-zero):
                 plain render path); one Reso64 B=2 gradient of the merge +
                 bg MSE loss through K1/K2/K5-fwd/K5-bwd (launches counted)
                 against the plain autograd path, every parameter leaf;
-  6. records  — a per-stage time breakdown of one serving chunk (the
+  6. probe    — the xᵀ·g probe kernel in its four operand modes at the
+                probe's shapes against their plain versions, timed beside
+                `torch.matmul` of the same bf16 product;
+  7. mesh     — `cli train --data-parallel 2 --ray-parallel 2` at Reso64
+                (B=2, VGG on, one epoch of the synthetic dataset): 4 ranks
+                sharing the one card over gloo, K1 and K2 launches counted on
+                every rank, params identical on every rank, one checkpoint;
+                one deterministic step on 2 x 2, 1 x 2 and 2 x 1 meshes
+                through K4 against the single-rank step through K3; a 1 x 1
+                mesh on NCCL: its step against the single-rank step (the
+                mesh path's own overhead) and K4 at the 2 x 2 shard shape
+                [1, 2048] against its plain version, timed;
+  8. records  — a per-stage time breakdown of one serving chunk (the
                 plain and the fused decoder pair side by side), the
                 `kernels` line, the card's name and power limit, and last
                 the `{"ok": true, "device": ...}` line.
@@ -107,6 +119,12 @@ UPS_BWD_RTOL = 5e-2
 UPS_BWD_REL_L2 = 1e-2
 UPS_GNET_REL_L2 = 2e-2
 UPS_GRGB_RTOL = 1e-5
+# the xᵀ·g probe against its plain version, each over max|ref|: `loaded`
+# multiplies the same bf16 values in f32 in another order; the other modes
+# first form x' = bf16(relu(x·w)), where another f32 summation order can
+# round an element to the neighbouring bf16 value (2^-8 of itself) or, at
+# the ReLU's edge, to 0
+PROBE_RTOL = {"loaded": 1e-5, "computed": 2e-3, "scratch": 2e-3, "f32": 2e-3}
 # one Reso64 B=2 gradient through K1/K2/K5 against the plain autograd path
 # (the NeRFMLP + composite and the NeuralRenderer decoder, which round each
 # product to bf16 before its bias where the kernels keep f32): the loss
@@ -115,7 +133,8 @@ UPS_GRGB_RTOL = 1e-5
 # every leaf)
 UPS_GRAD_REL_L2 = 3e-2
 
-KERNELS = ("fused_render_fwd", "fused_render_bwd", "fused_upsampler_fwd", "fused_upsampler_bwd")
+KERNELS = ("fused_render_fwd", "fused_render_bwd", "fused_upsampler_fwd", "fused_upsampler_bwd",
+           "probe_xtg")
 FRAMES = 8   # served at Reso64 in chunks of 4: two K1 launches
 DEVICE = "cuda"        # of the training phases
 TRAIN_EPOCHS = 2        # cli train at Reso64: 8 synthetic frames, B=2 -> 4 steps an epoch,
@@ -150,6 +169,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_ms_per_call(fn, calls: int = 200, reps: int = 5) -> float:
+    """Median over `reps` of the CUDA-event time of `calls` back-to-back
+    calls of fn(), divided by `calls`: for launches shorter than a launch's
+    own overhead."""
+    return cuda_ms(lambda: [fn() for _ in range(calls)], reps=reps) / calls
 
 
 def phase_build():
@@ -1021,6 +1047,322 @@ def phase_breakdown(seed: int):
     log("breakdown " + json.dumps({"chunk": B, "ms": times}))
 
 
+# ---- the xᵀ·g probe
+
+def phase_probe(seed: int):
+    """The probe's four modes at N=1024, K=384, H=384 against their plain
+    versions, each timed over many back-to-back launches, beside
+    `torch.matmul` of the same bf16 product."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.ops.kernels import probe_xtg as px
+
+    g = torch.Generator().manual_seed(seed + 20)
+    bf = torch.bfloat16
+    x = torch.randn(px.N, px.K, generator=g).to(DEVICE, bf)
+    gg = torch.randn(px.N, px.H, generator=g).to(DEVICE, bf)
+    w = (torch.randn(px.K, px.H, generator=g) * 0.05).to(DEVICE, bf)
+    px.probe_xtg.launches = 0
+    rec = {"ms_by_mode": {}, "plain_ms_by_mode": {}, "bound_ms_by_mode": {}, "err_by_mode": {}}
+    worst = 0.0
+    for mode in px.MODES:
+        with torch.no_grad():
+            out = px.probe_xtg(x, gg, w, mode)
+            ref = px.reference_xtg(x, gg, w, mode)
+        torch.cuda.synchronize()
+        err, peak = float((out - ref).abs().max()), float(ref.abs().max())
+        if not (torch.isfinite(out).all() and err <= PROBE_RTOL[mode] * peak):
+            raise AssertionError(f"probe_xtg {mode}: max_abs_err {err:.3e} over "
+                                 f"{PROBE_RTOL[mode]:.0e} of max|ref| {peak:.3e}")
+        worst = max(worst, err)
+        ms = cuda_ms_per_call(lambda: px.probe_xtg(x, gg, w, mode))
+        plain_ms = cuda_ms_per_call(lambda: px.reference_xtg(x, gg, w, mode), calls=20)
+        flops = 2.0 * px.N * px.K * px.H * (1 if mode == "loaded" else 2)
+        bound_ms, bound_by = bound(flops, tensor_bytes(x, gg, None if mode == "loaded" else w,
+                                                       out))
+        rec["ms_by_mode"][mode], rec["plain_ms_by_mode"][mode] = ms, plain_ms
+        rec["bound_ms_by_mode"][mode], rec["err_by_mode"][mode] = bound_ms, err / peak
+        log(f"probe_xtg {mode}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us), bound "
+            f"{bound_ms * 1e3:.3f} us by {bound_by}; max_abs_err {err:.3e} = {err / peak:.2e} of "
+            f"max|ref| (tolerance {PROBE_RTOL[mode]:.0e})")
+    lib_ms = cuda_ms_per_call(lambda: torch.matmul(x.T, gg))
+    log(f"probe_xtg: torch.matmul(x.T, g) bf16 -> bf16 {lib_ms * 1e3:.2f} us; launches "
+        f"{px.probe_xtg.launches} (the probe is on no path of the system)")
+    loaded_bound, loaded_by = bound(2.0 * px.N * px.K * px.H, tensor_bytes(x, gg) + px.K * px.H * 4)
+    return {"name": "probe_xtg", "route": "cuda",
+            "source": "nerf3dtalker_tpu_torch/csrc/probe_xtg.cu",
+            "replaces": "scripts/probe_mosaic_bf16T.py:57",
+            "launches": px.probe_xtg.launches,
+            "launches_by_path": {"probe (on no path of the system)": px.probe_xtg.launches},
+            "max_abs_err": worst, "ms": rec["ms_by_mode"]["loaded"],
+            "plain_ms": rec["plain_ms_by_mode"]["loaded"], "bound_ms": loaded_bound,
+            "bound_by": loaded_by, "library_ms": lib_ms, **rec}
+
+
+# ---- training on a (data, rays) mesh: K4
+
+MESH_FRAMES = 8      # cli train's synthetic dataset: 4 steps of B=2 an epoch
+MESH_VAL = 2         # validation frames: one batch of the data axis (2), a frame a rank
+
+
+def phase_mesh_train(seed: int, workdir: str):
+    """`cli train --data-parallel 2 --ray-parallel 2` at Reso64, B=2, VGG on,
+    one epoch: 4 ranks share the card over gloo. Each rank counts its K1 and
+    K2 launches around the trainer's own train steps and validation; the
+    run reports them and whether every rank's params are bit-identical."""
+    import shutil
+
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+
+    ckpt_dir = os.path.join(workdir, "mesh_ckpt")
+    log_dir = os.path.join(workdir, "mesh_logs")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    cfg = train_config()
+    argv = ["train", "--featmap-size", str(cfg.featmap_size), "--img-size",
+            str(cfg.pred_img_size), "--batch-size", "2", "--device", DEVICE, "--epochs", "1",
+            "--seed", str(seed), "--ckpt-dir", ckpt_dir, "--log-dir", log_dir,
+            "--data-parallel", "2", "--ray-parallel", "2"]
+    for c in (fr.fused_render_fwd, fr.fused_render_bwd, fr.fused_render_spmd):
+        c.launches = 0     # the ranks are new processes: theirs start at 0 too
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = cli.main(argv)
+    wall = time.perf_counter() - t0
+    steps = MESH_FRAMES // 2
+    by_rank = rec["mesh"]["launches_by_rank"]
+    ckpts = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".pt"))
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        lines = f.read().splitlines()
+    log(f"mesh training: cli train 2 x 2 (4 ranks sharing one card over gloo), 1 epoch, {steps} "
+        f"steps in {wall:.1f} s (whole cli call: spawning the ranks, data, VGG planes, model "
+        f"build, steps, validation, checkpoint); {rec['sec_per_step'] * 1e3:.1f} ms/step on rank "
+        f"0 (a functional figure of 4 ranks on one card, not a scaling one); launches per rank "
+        f"[K1, K2 in the train steps; K1, K2 in validation] {by_rank} (expected "
+        f"{[steps, steps, 1, 0]} each); params identical on every rank: "
+        f"{rec['mesh']['params_identical']}; checkpoints {ckpts}")
+    log("mesh training epoch " + json.dumps({k: rec[k] for k in (
+        "total_loss", "vgg", "finite_step", "sec_per_step", "rays_per_s", "SSIM", "PSNR")}))
+    if any(r != [steps, steps, 1, 0] for r in by_rank) or len(by_rank) != 4:
+        raise AssertionError(f"mesh training launches by rank: {by_rank}")
+    if not rec["mesh"]["params_identical"]:
+        raise AssertionError("the ranks' params differ after the mesh epoch")
+    if len(ckpts) != 1 or len(lines) != 1:
+        raise AssertionError(f"mesh training wrote checkpoints {ckpts}, {len(lines)} metrics lines")
+    losses = [rec[k] for k in ("bg_loss", "head_loss", "nonhead_loss", "vgg", "total_loss")]
+    if not all(map(math.isfinite, losses)) or rec["finite_step"] != 1.0:
+        raise AssertionError(f"mesh training epoch: {rec}")
+    return {"launches_by_rank": by_rank, "wall_s": wall, "ms_per_step": rec["sec_per_step"] * 1e3}
+
+
+def _parity_batch(seed: int):
+    """The global Reso64 B=2 batch of `_train_setup` (with its VGG planes),
+    on the host."""
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch.data.dataset import synthetic_dataset, to_tensors
+    from nerf3dtalker_tpu_torch.models.perceptual import load_vgg16
+
+    data = synthetic_dataset(train_config(), num_frames=2, seed=seed)
+    data.precompute_gt_vgg(load_vgg16(seed=0, device=DEVICE), compute_dtype=torch.bfloat16)
+    return to_tensors(data.batch(np.arange(2)), "cpu")
+
+
+def _grad_errors(loss_ref: float, grads_ref, loss: float, grads, names):
+    """(loss rel error, worst leaf rel L2, its name) of a step against the
+    single-rank one."""
+    import torch
+
+    worst, worst_name = -1.0, ""
+    for group in ("nerf", "audio"):
+        for name, a, b in zip(names[group], grads[group], grads_ref[group]):
+            a = a.to(b.device)
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"mesh step: non-finite gradient {group}.{name}")
+            rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            if rel > worst:
+                worst, worst_name = rel, f"{group}.{name}"
+    return abs(loss - loss_ref) / abs(loss_ref), worst, worst_name
+
+
+def phase_mesh_parity(seed: int, workdir: str):
+    """One deterministic step on a 2 x 2 mesh (4 ranks) and on 1 x 2 and
+    2 x 1 meshes (2 ranks), through K4, against the single-rank step through
+    K3 on the same batch and weights (both from the seeded init)."""
+    import dataclasses
+
+    import torch
+
+    from nerf3dtalker_tpu_torch.parallel import selfcheck
+
+    batch = _parity_batch(seed)
+    step = {"nerf_cfg": dataclasses.asdict(train_config()), "train_cfg": {"seed": seed},
+            "seed": seed, "steps_per_epoch": 4, "vgg": True, "batch": batch, "save": True}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    waits = [selfcheck.start({"device": DEVICE, "meshes": [(2, 2)], "step": step}, 4,
+                             os.path.join(workdir, "mesh_parity")),
+             selfcheck.start({"device": DEVICE, "meshes": [(1, 2), (2, 1)], "step": step}, 2,
+                             os.path.join(workdir, "mesh_parity"))]
+    fns, state, local_batch, _ = _train_setup(seed, use_fused=True)
+    lr, gr = fns.loss_and_grads(state, local_batch)
+    loss_ref = float(lr["total_loss"].detach())
+    names = {"nerf": [n for n, p in state.nerf.named_parameters() if p.requires_grad],
+             "audio": [n for n, p in state.audio.named_parameters() if p.requires_grad]}
+    results = {}    # mesh shape -> each rank's results
+    for wait in waits:
+        ranks = wait()
+        for shape in ranks[0]:
+            results[shape] = [r[shape] for r in ranks]
+    log(f"mesh parity: ranks ran in {time.perf_counter() - t0:.1f} s (spawn, init, one step)")
+    out = {}
+    for shape in ((2, 2), (1, 2), (2, 1)):
+        steps = [r["step"] for r in results[shape]]
+        k4 = sum(s["launches"]["fused_render_spmd"] for s in steps)
+        loss_rel, worst, worst_name = _grad_errors(loss_ref, gr, steps[0]["losses"]["total_loss"],
+                                                   steps[0]["grads"], names)
+        same = all(s["grads_identical"] for s in steps)
+        log(f"mesh step {shape[0]} x {shape[1]} through K4 vs single-rank step through K3: "
+            f"total loss {steps[0]['losses']['total_loss']:.6f} vs {loss_ref:.6f} (rel "
+            f"{loss_rel:.2e}, tolerance {STEP_LOSS_RTOL:.0e}); worst gradient leaf {worst_name} "
+            f"rel L2 {worst:.3e} (tolerance {STEP_GRAD_REL_L2:.0e}); launches per rank "
+            f"{[s['launches'] for s in steps]}; gradients bit-identical on every rank: {same}")
+        if any(s["launches"] != {"fused_render_fwd": 1, "fused_render_bwd": 1,
+                                 "fused_render_spmd": 2} for s in steps):
+            raise AssertionError(f"mesh step {shape} launches: {[s['launches'] for s in steps]}")
+        if not same:
+            raise AssertionError(f"mesh step {shape}: the ranks' gradients differ")
+        if loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_REL_L2:
+            raise AssertionError(f"the {shape} mesh step disagrees with the single-rank step")
+        out[f"{shape[0]}x{shape[1]}"] = {"loss_rel": loss_rel, "worst_grad_rel_l2": worst,
+                                         "worst_leaf": worst_name, "k4_launches": k4}
+    return out
+
+
+def phase_mesh_nccl(seed: int, workdir: str):
+    """A 1 x 1 mesh on NCCL in this process: the mesh step against the
+    single-rank step (same weights and batch; the difference is the mesh
+    path's own overhead), and K4 at the 2 x 2 shard shape [1, 2048] against
+    its plain version, timed beside K1 and K2 alone."""
+    import torch
+    import torch.distributed as dist
+
+    from nerf3dtalker_tpu_torch.config import TrainConfig
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.parallel.mesh import init_ranks, make_mesh, shard_batch
+    from nerf3dtalker_tpu_torch.train.step import build_step_fns
+
+    store = os.path.join(workdir, "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    init_ranks(0, 1, 0, 1, DEVICE, f"file://{store}")
+    backend = dist.get_backend()
+    try:
+        mesh = make_mesh(1, 1, device=DEVICE if DEVICE == "cpu" else None)
+        fns, state, batch, vgg = _train_setup(seed, use_fused=True)
+        mfns = build_step_fns(state.nerf.cfg, TrainConfig(seed=seed), 4, vgg=vgg, mesh=mesh)
+        mstate = mfns.init(seed)
+        local = shard_batch(batch, mesh)
+        counters = (fr.fused_render_fwd, fr.fused_render_bwd, fr.fused_render_spmd)
+        for c in counters:
+            c.launches = 0
+        lm, gm = mfns.loss_and_grads(mstate, local)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        lr, gr = fns.loss_and_grads(state, batch)
+        names = {"nerf": [n for n, p in state.nerf.named_parameters() if p.requires_grad],
+                 "audio": [n for n, p in state.audio.named_parameters() if p.requires_grad]}
+        loss_rel, worst, worst_name = _grad_errors(float(lr["total_loss"].detach()), gr,
+                                                   float(lm["total_loss"].detach()), gm, names)
+        if launches != [1, 1, 2] or loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_REL_L2:
+            raise AssertionError(f"1 x 1 {backend} mesh step: launches {launches}, loss rel "
+                                 f"{loss_rel:.2e}, worst leaf {worst_name} {worst:.2e}")
+        gen = torch.Generator(device=DEVICE)
+        ms = {}
+        for name in ("single", "mesh", "mesh", "single"):   # in turns
+            f, st, b = (fns, state, batch) if name == "single" else (mfns, mstate, local)
+            ms.setdefault(name, []).append(cuda_ms(
+                lambda: f.train_step(st, b, gen.manual_seed(seed)), reps=5, warmup=1))
+        single, meshed = statistics.median(ms["single"]), statistics.median(ms["mesh"])
+        log(f"mesh 1 x 1 on {backend}: step within {worst:.2e} rel L2 of the single-rank step "
+            f"(worst leaf {worst_name}), loss rel {loss_rel:.2e}; launches K1/K2/K4 {launches}; "
+            f"train step {meshed:.2f} ms vs single-rank {single:.2f} ms (CUDA events, median of 5, "
+            f"two turns each): the mesh path's own overhead {meshed - single:+.2f} ms")
+        k4 = _k4_at_shard(seed, mesh)
+        k4["launches_nccl_step"] = launches[2]
+        return {"backend": backend, "ms_mesh_step": meshed, "ms_single_step": single,
+                "overhead_ms": meshed - single, "worst_grad_rel_l2": worst,
+                "loss_rel": loss_rel, "k4": k4}
+    finally:
+        dist.destroy_process_group()
+
+
+def _k4_at_shard(seed: int, mesh):
+    """K4 forward + backward on one rank's shard of the 2 x 2 layout at
+    Reso64 B=2 ([1, 2048]), its plain version, and K1 / K2 alone there."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+
+    pe, zd, zv, packed = fused_render_inputs(seed, B=1)
+    pe, zd, zv = (t[:, :2048].contiguous() for t in (pe, zd, zv))
+    B, R = pe.shape[:2]
+    g = torch.Generator().manual_seed(seed + 7)
+    feat = packed["wr2"].shape[1]
+    cot = [torch.randn(*s, generator=g).to(DEVICE) for s in ((B, R, feat), (B, R), (B, R))]
+
+    def run(fn):
+        leaves = {k: v.detach().float().requires_grad_() for k, v in packed.items()}
+        outs = fn(pe, zd, zv, leaves, mesh, torch.bfloat16)
+        torch.autograd.backward(outs, cot)
+        return outs, {k: v.grad for k, v in leaves.items()}
+
+    outs, dw = run(fr.fused_render_spmd)
+    routs, rdw = run(fr.reference_render_spmd)
+    outs, routs = [o.detach() for o in outs], [o.detach() for o in routs]
+    torch.cuda.synchronize()
+    max_abs, worst_out, worst_dw = 0.0, 0.0, 0.0
+    for name, a, b in zip(("feat", "bg_alpha", "depth"), outs, routs):
+        err, peak = float((a - b).abs().max()), float(b.abs().max())
+        worst_out, max_abs = max(worst_out, err / peak), max(max_abs, err)
+        if not (torch.isfinite(a).all() and err <= KERNEL_RTOL * peak):
+            raise AssertionError(f"K4 {name} at [1, 2048]: max_abs_err {err:.3e}, max|ref| {peak:.3e}")
+    for k in dw:
+        err, peak = float((dw[k] - rdw[k]).abs().max()), float(rdw[k].abs().max())
+        worst_dw, max_abs = max(worst_dw, err / peak), max(max_abs, err)
+        if not (torch.isfinite(dw[k]).all() and err <= BWD_RTOL * peak):
+            raise AssertionError(f"K4 d{k} at [1, 2048]: max_abs_err {err:.3e}, max|ref| {peak:.3e}")
+    ms = cuda_ms(lambda: run(fr.fused_render_spmd), reps=5)
+    plain_ms = cuda_ms(lambda: run(fr.reference_render_spmd), reps=3, warmup=1)
+    with torch.no_grad():
+        k1_ms = cuda_ms(lambda: fr.fused_render_fwd(pe, zd, zv, packed), reps=5)
+        k2_ms = cuda_ms(lambda: fr.fused_render_bwd(pe, zd, zv, packed, *cot, input_grads=False),
+                        reps=5)
+    macs = mlp_macs(packed)
+    chain = macs - packed["w0p"].numel() - packed["w5p"].numel()
+    flops = 2.0 * B * R * pe.shape[2] * (macs + macs + macs + chain)   # fwd; recompute, dW, dX
+    dw_bytes = sum(v.numel() * 4 for v in dw.values())
+    nbytes = (tensor_bytes(pe, zd, zv, *packed.values(), *outs, *cot) + dw_bytes
+              + 2 * dw_bytes)   # the gradients written, then read and written by the all-reduce
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"K4 fused_render_spmd at the 2 x 2 shard [1, 2048], 1 x 1 mesh: forward + backward "
+        f"{ms:.3f} ms (plain {plain_ms:.3f} ms), bound {bound_ms:.3f} ms by {bound_by}; K1 "
+        f"alone {k1_ms:.3f} ms, K2 alone {k2_ms:.3f} ms; outputs within {worst_out:.2e} of "
+        f"max|ref| (tolerance {KERNEL_RTOL:.0e}), weight gradients within {worst_dw:.2e} "
+        f"(tolerance {BWD_RTOL:.0e})")
+    return {"name": "fused_render_spmd", "route": "cuda",
+            "source": "nerf3dtalker_tpu_torch/ops/kernels/fused_render.py",
+            "replaces": "nerf3dtalker_tpu/ops/pallas/fused_render.py:779",
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,   # no PyTorch call computes the MLP render and its backward
+            "shard": [B, R], "k1_ms_shard": k1_ms, "k2_ms_shard": k2_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1055,6 +1397,19 @@ def main() -> int:
     ups_serving = phase_serving_upsampler(args.seed, FRAMES, workdir)
     ups_grad = phase_gradient_upsampler(args.seed)
     phase_breakdown(args.seed)
+    probe = phase_probe(args.seed)
+    mesh_train = phase_mesh_train(args.seed, workdir)
+    mesh_parity = phase_mesh_parity(args.seed, workdir)
+    nccl = phase_mesh_nccl(args.seed, workdir)
+    k4 = nccl.pop("k4")
+    # K4's launches (its K1 + K2 launches) by path: every rank's in the mesh
+    # epoch (train steps and validation), the parity steps', the NCCL step's
+    k4["launches_by_path"] = {
+        "mesh_epoch_2x2": sum(sum(r) for r in mesh_train["launches_by_rank"]),
+        **{f"parity_step_{k}": v["k4_launches"] for k, v in mesh_parity.items()},
+        "nccl_step_1x1": k4.pop("launches_nccl_step")}
+    k4["launches_by_rank_mesh_epoch"] = mesh_train["launches_by_rank"]
+    k4["launches"] = sum(k4["launches_by_path"].values())
     # launches on the main paths, each path's counts set to 0 just before it
     # and read just after: K1 in serving, in training (train steps, then
     # validation renders), in serving and in the gradient with the fused
@@ -1074,10 +1429,11 @@ def main() -> int:
                     "fused_upsampler": {"serving": ups_serving, "gradient": ups_grad},
                     "training": {"steps": train["steps"], "ms_per_step": step["ms_per_step"],
                                  "rays_per_s": step["rays_per_s"], "parity": parity},
+                    "mesh": {"epoch_2x2": mesh_train, "parity": mesh_parity, "nccl_1x1": nccl},
                     "build_s": build_info["build_s"], "nvcc": build_info["nvcc"]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(json.dumps({"kernels": [k1, k2, k5f, k5b]}))
+    log(json.dumps({"kernels": [k1, k2, k5f, k5b, k4, probe]}))
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,20 @@
 Runs on `cuda` unless `--device cpu` is given. On the GPU HeadNeRF computes
 in bf16 through the fused render kernels; on the CPU in f32 through the
 plain path.
+
+`train --data-parallel D --ray-parallel R` trains on D·R ranks laid out as a
+(data, rays) mesh (`parallel.mesh`). Under `torchrun` (RANK and WORLD_SIZE
+set) this process is one of them; otherwise it builds every kernel, starts
+the D·R ranks itself (`torch.multiprocessing` spawn, rendezvous through a
+file under --ckpt-dir) and prints rank 0's result. Both at 1 (the default)
+is the single-device run.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 
 def _codes_from_latents(path):
@@ -95,7 +103,9 @@ def cmd_animate(args) -> dict:
     return rec
 
 
-def cmd_train(args) -> dict:
+def _train(args, mesh=None) -> dict:
+    """One rank's training run (the only one without a mesh): the epoch
+    record of the last epoch, and under a mesh its `mesh_report`."""
     import numpy as np
 
     from nerf3dtalker_tpu_torch.config import NeRFConfig, TrainConfig
@@ -105,7 +115,8 @@ def cmd_train(args) -> dict:
     from nerf3dtalker_tpu_torch.utils.checkpoints import has_checkpoint
     from nerf3dtalker_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     cfg = NeRFConfig(featmap_size=args.featmap_size, pred_img_size=args.img_size)
     tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
                      ckpt_dir=args.ckpt_dir, use_vgg_loss=not args.no_vgg,
@@ -119,24 +130,99 @@ def cmd_train(args) -> dict:
         train = FrameDataset({k: v[:-n_val] for k, v in arrays.items()}, xy)
         val = FrameDataset({k: v[-n_val:] for k, v in arrays.items()}, xy)
     else:
-        print("no --data given; training on a synthetic sanity dataset")
+        say("no --data given; training on a synthetic sanity dataset")
         train = synthetic_dataset(cfg, num_frames=8)
         val = synthetic_dataset(cfg, num_frames=2, seed=1)
 
-    t = Trainer(cfg, tc, train, val, device=dev)
+    t = Trainer(cfg, tc, train, val, device=dev, mesh=mesh)
     t.init()
     if args.resume:
         if has_checkpoint(args.ckpt_dir):
             t.resume(args.ckpt_dir)
-            print(f"resumed from step {t.state.step} (epoch {t.start_epoch})")
+            say(f"resumed from step {t.state.step} (epoch {t.start_epoch})")
         else:
-            print(f"--resume: no checkpoint under {args.ckpt_dir}; starting fresh")
+            say(f"--resume: no checkpoint under {args.ckpt_dir}; starting fresh")
     hist = t.train(args.epochs)
     rec = hist[-1] if hist else {
         "epochs_done": t.start_epoch, "step": t.state.step,
         "note": "checkpoint already at/beyond --epochs; nothing to do"}
+    if mesh is not None:
+        rec = {**rec, "mesh": {"data": mesh.data, "rays": mesh.rays, **t.mesh_report()}}
+    return rec
+
+
+def _train_rank(local_rank: int, world: int, args, init_method: str, result_path: str) -> None:
+    """One spawned rank of `cmd_train`: rank = local_rank on this host.
+    Rank 0 writes the result to `result_path`."""
+    import torch.distributed as dist
+
+    from nerf3dtalker_tpu_torch.parallel.mesh import init_ranks, make_mesh
+
+    dev = init_ranks(local_rank, world, local_rank, world, args.device, init_method)
+    try:
+        rec = _train(args, make_mesh(args.data_parallel, args.ray_parallel, device=dev))
+        if local_rank == 0:
+            with open(result_path, "w") as f:
+                json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def cmd_train(args) -> dict:
+    data, rays = args.data_parallel, args.ray_parallel
+    if data < 1 or rays < 1:
+        raise SystemExit("--data-parallel and --ray-parallel must be >= 1")
+    world = data * rays
+    if world == 1:
+        rec = _train(args)
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # one rank of torchrun
+        import torch.distributed as dist
+
+        from nerf3dtalker_tpu_torch.parallel.mesh import init_ranks, make_mesh
+
+        rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        if size != world:
+            raise SystemExit(f"WORLD_SIZE {size} != --data-parallel x --ray-parallel {world}")
+        dev = init_ranks(rank, size, int(os.environ.get("LOCAL_RANK", rank)),
+                         int(os.environ.get("LOCAL_WORLD_SIZE", size)), args.device)
+        try:
+            rec = _train(args, make_mesh(data, rays, device=dev))
+        finally:
+            dist.destroy_process_group()
+        if rank:
+            return rec
+    else:
+        rec = _spawn_train(args, world)
     print(json.dumps(rec))
     return rec
+
+
+def _spawn_train(args, world: int) -> dict:
+    """Start `world` ranks on this host, wait for all of them (one that dies
+    fails this call) and return rank 0's result. Every kernel is built here
+    first, so that the ranks load them and never compile at once."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    if args.device != "cpu":
+        from nerf3dtalker_tpu_torch.ops.kernels import build
+        from nerf3dtalker_tpu_torch.utils.device import resolve_device
+
+        resolve_device(args.device)
+        build.build_all()
+    parent = args.ckpt_dir or args.log_dir or "."
+    os.makedirs(parent, exist_ok=True)
+    rdv = tempfile.mkdtemp(prefix=".rendezvous-", dir=parent)
+    try:
+        result = os.path.join(rdv, "result.json")
+        mp.spawn(_train_rank, args=(world, args, f"file://{os.path.join(rdv, 'store')}", result),
+                 nprocs=world, join=True)
+        with open(result) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
 
 
 def main(argv=None):
@@ -163,6 +249,10 @@ def main(argv=None):
     pt.add_argument("--guard-policy", default="warn", choices=["warn", "rollback", "abort"],
                     help="on non-finite steps: warn / roll back to the last checkpoint / abort")
     pt.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pt.add_argument("--data-parallel", type=int, default=1,
+                    help="ranks over the frames of a batch (the mesh's data axis)")
+    pt.add_argument("--ray-parallel", type=int, default=1,
+                    help="ranks over the rays of a frame (the mesh's rays axis)")
     pt.set_defaults(fn=cmd_train)
 
     pa = sub.add_parser("animate", help="wav -> talking-head frames (.npy)")

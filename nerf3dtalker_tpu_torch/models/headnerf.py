@@ -16,6 +16,13 @@ raises, on the CPU the kernels' plain versions take any dims.
 Training passes the stratified jitter as `noise`, drawn from the caller's
 generator.
 
+With a `mesh` (`parallel.mesh`, JAX's `fused_mesh`) the batch is this
+rank's shard: its frames and its band of rays. Rays, PE and the render run
+on the ray shard through K4 (`fused_render_spmd`: K1/K2 on the card, their
+plain versions on the CPU); feat, bg_alpha and depth are then gathered over
+the rays group (`gather_rays`), and the decoder runs on the whole
+[B/D, S, S, C] map, replicated over the rays group.
+
 Not ported yet: hierarchical sampling, gaze and view-direction conditioning
 (the constructor raises on them).
 """
@@ -36,6 +43,7 @@ from nerf3dtalker_tpu_torch.ops.embedding import positional_encoding, positional
 from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
 from nerf3dtalker_tpu_torch.ops.kernels.fused_upsampler import fused_upsampler
 from nerf3dtalker_tpu_torch.ops.rays import gen_rays, sample_points, stratified_zvals
+from nerf3dtalker_tpu_torch.parallel.mesh import Mesh, gather_rays
 from nerf3dtalker_tpu_torch.utils.device import resolve_device
 
 
@@ -43,7 +51,8 @@ class HeadNeRF(nn.Module):
     def __init__(self, cfg: NeRFConfig, compute_dtype: torch.dtype = torch.float32,
                  use_fused: bool = False, use_fused_upsampler: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None):
         """Parameters are initialized on the CPU from `generator` (a CPU
         `torch.Generator`; None draws from the global RNG) and then moved to
         `device` (default `cuda`)."""
@@ -53,6 +62,10 @@ class HeadNeRF(nn.Module):
             raise NotImplementedError(
                 "hierarchical sampling, gaze and view-direction conditioning "
                 "are not ported yet")
+        if mesh is not None and (not use_fused or use_fused_upsampler):
+            raise ValueError("the mesh path renders through K4 (use_fused=True) and the "
+                             "plain decoder (use_fused_upsampler=False), as in the JAX package")
+        self.mesh = mesh
         self.cfg, self.compute_dtype, self.use_fused = cfg, compute_dtype, use_fused
         self.use_fused_upsampler = use_fused_upsampler
         self.fg_CD_predictor = NeRFMLP(
@@ -102,7 +115,7 @@ class HeadNeRF(nn.Module):
         noise: Optional[torch.Tensor] = None,   # [B, N_r, N_s+1] stratified jitter
     ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
-        B, S = batch_xy.shape[0], cfg.featmap_size
+        B, S = batch_xy.shape[0], cfg.featmap_size   # B: this rank's frames under a mesh
         rays = gen_rays(batch_xy, Rmat, Tvec, inv_inmat)
         zb = stratified_zvals(rays, cfg.num_sample_coarse, cfg.world_z1, cfg.world_z2, noise)
         sp = sample_points(rays, zb)
@@ -113,8 +126,14 @@ class HeadNeRF(nn.Module):
             packed = fr.pack_weights(dict(self.fg_CD_predictor.named_parameters()), shape_code,
                                      appea_code, audio_style)
             cdt = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else torch.float32
-            feat, bg_alpha, depth = fr.fused_render(
-                pe.contiguous(), sp.z_dists.contiguous(), sp.zvals.contiguous(), packed, cdt)
+            args = (pe.contiguous(), sp.z_dists.contiguous(), sp.zvals.contiguous(), packed)
+            if self.mesh is None:
+                feat, bg_alpha, depth = fr.fused_render(*args, cdt)
+            else:   # one gather of the three maps over the rays group
+                feat, bg_alpha, depth = fr.fused_render_spmd(*args, self.mesh, cdt)
+                maps = gather_rays(torch.cat([feat, bg_alpha[..., None], depth[..., None]], -1),
+                                   self.mesh)
+                feat, bg_alpha, depth = maps[..., :-2], maps[..., -2], maps[..., -1]
             comp = CompositeResult(feat, bg_alpha, depth, None)
         else:
             pe = positional_encoding(sp.pts, cfg.vp_n_freqs, cfg.vp_include_input)

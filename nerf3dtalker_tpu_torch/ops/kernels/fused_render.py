@@ -8,6 +8,9 @@ their plain PyTorch versions and the autograd Function that joins them
                     version `reference_render_bwd`
   fused_render      `FusedRender`, the differentiable render: forward
                     through the first, backward through the second
+  fused_render_spmd `FusedRenderSPMD`, the same on one rank's shard of a
+                    (data, rays) mesh, with the weight gradients all-reduced
+                    over the rays group; plain version `reference_render_spmd`
 
 A wrapper launches its kernel on a CUDA tensor and takes the plain version,
 with the same arithmetic, on a CPU tensor. There is no other route: a CUDA
@@ -34,6 +37,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from nerf3dtalker_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 
 # the dims the CUDA kernel is compiled for (Reso32/64 flagship)
 H = 384
@@ -500,3 +505,79 @@ def fused_render(pe, z_dists, zvals, weights: Dict[str, torch.Tensor],
     """`fused_render_fwd` with a backward (`FusedRender`)."""
     return FusedRender.apply(compute_dtype, pe, z_dists, zvals,
                              *(weights[k] for k in _WEIGHTS + _BIASES))
+
+
+class FusedRenderSPMD(torch.autograd.Function):
+    """K4, the fused render on one rank's shard of a (data, rays) mesh
+    (port of `fused_render.py:fused_render_spmd`, custom_vjp :779-851).
+
+    Forward: `fused_render_fwd` (K1) on the local [B/D, R/Rr] shard; the
+    per-batch b0/b5/br1 are this rank's rows, as `pack_weights` folds them
+    from the local codes. Backward: one `fused_render_bwd` (K2) launch on
+    the shard, then one all-reduce (sum) over the rays group of every
+    weight gradient, flattened into one buffer.
+
+    The sum over the data axis is not here: the train step all-reduces
+    every trainable leaf once (over every rank, the rays copies averaged).
+    JAX psums the per-batch keys over rays and every shared key over
+    (data, rays) inside the backward (:836-837); its global view then
+    routes both into the MLP leaves without double counting. In the port
+    `pack_weights` sends a shared key's and a per-batch key's gradient into
+    the same leaf (`fea_0_kernel`'s PE rows through w0p and its code rows
+    through b0; `fea_5_kernel` and `rgb_1_kernel` likewise), so a data sum
+    of the shared keys here and of every leaf in the step would count the
+    shared part twice, and a step that skipped those leaves would leave the
+    per-batch part unsummed. Summing over rays here and over data in the
+    step gives JAX's totals.
+
+    With `plain` the forward and backward are `reference_render` and
+    `reference_render_bwd` with the same collectives: the plain version.
+    Otherwise the wrappers launch the kernels on CUDA tensors (and take the
+    plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, mesh: Mesh, compute_dtype, plain, pe, z_dists, zvals, *packed):
+        weights = dict(zip(_WEIGHTS + _BIASES, packed))
+        ctx.mesh, ctx.compute_dtype, ctx.plain = mesh, compute_dtype, plain
+        ctx.save_for_backward(pe, z_dists, zvals, *packed)
+        if plain:
+            return reference_render(pe, z_dists, zvals, weights, compute_dtype)
+        before = fused_render_fwd.launches
+        out = fused_render_fwd(pe, z_dists, zvals, weights, compute_dtype)
+        fused_render_spmd.launches += fused_render_fwd.launches - before
+        return out
+
+    @staticmethod
+    def backward(ctx, g_feat, g_bg, g_depth):
+        pe, z_dists, zvals, *packed = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:6]
+        bwd = reference_render_bwd if ctx.plain else fused_render_bwd
+        before = fused_render_bwd.launches
+        d_pe, d_zd, d_zv, dw = bwd(
+            pe, z_dists, zvals, dict(zip(_WEIGHTS + _BIASES, packed)),
+            g_feat.contiguous(), g_bg.contiguous(), g_depth.contiguous(),
+            ctx.compute_dtype, input_grads=any(need))
+        fused_render_spmd.launches += fused_render_bwd.launches - before
+        dws = all_reduce_sum([dw[k] for k in _WEIGHTS + _BIASES], ctx.mesh.rays_group)
+        ins = [g if n else None for g, n in zip((d_pe, d_zd, d_zv), need)]
+        return (None, None, None, *ins, *dws)
+
+
+def fused_render_spmd(pe, z_dists, zvals, weights: Dict[str, torch.Tensor], mesh: Mesh,
+                      compute_dtype: torch.dtype = torch.bfloat16):
+    """K4 on this rank's shard: pe [B/D, R/Rr, NS, PE_PAD], the packed
+    weights of its rows; returns its shard of (features, bg_alpha, depth).
+    `launches` counts the K1 and K2 launches it made."""
+    return FusedRenderSPMD.apply(mesh, compute_dtype, False, pe, z_dists, zvals,
+                                 *(weights[k] for k in _WEIGHTS + _BIASES))
+
+
+fused_render_spmd.launches = 0
+
+
+def reference_render_spmd(pe, z_dists, zvals, weights: Dict[str, torch.Tensor], mesh: Mesh,
+                          compute_dtype: torch.dtype = torch.float32):
+    """Plain version of K4: `reference_render` / `reference_render_bwd` on
+    the shard, the same collectives."""
+    return FusedRenderSPMD.apply(mesh, compute_dtype, True, pe, z_dists, zvals,
+                                 *(weights[k] for k in _WEIGHTS + _BIASES))

@@ -9,6 +9,14 @@ reference `HeadNeRFLossUtils`, Utils/HeadNeRFLossUtils.py:67-236):
 
 Masked selection (`res_img[mask]`) is a masked mean, as in the JAX package.
 The fitting regularizers are not ported yet.
+
+Under a (data, rays) mesh each rank sees B/D frames and every loss is a mean
+over the global batch: the masked means divide by the global mask count
+(all-reduced over the data group), and the plain means (bg, VGG) are scaled
+by B_local / B. The ranks' shares then sum to the single-rank loss, and a
+plain sum of their gradients over the data group is the single-rank
+gradient. The values returned are the global losses (one more all-reduce),
+with the gradient of this rank's share.
 """
 
 from __future__ import annotations
@@ -16,15 +24,27 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from nerf3dtalker_tpu_torch.models.perceptual import VGG16Features, vgg_perceptual_loss
 
 
-def _masked_mse(x: torch.Tensor, y, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of (x - y)^2 over the mask (broadcast over channels)."""
+def _masked_mse(x: torch.Tensor, y, mask: torch.Tensor,
+                count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean of (x - y)^2 over the mask (broadcast over channels); `count`,
+    where given, is the mask's sum over every rank's frames."""
     se = (x - y) ** 2 * mask
-    denom = torch.sum(mask) * x.shape[-1]
+    denom = (torch.sum(mask) if count is None else count) * x.shape[-1]
     return torch.sum(se) / torch.clamp(denom, min=1.0)
+
+
+def _global_values(losses: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each loss with the value summed over `group` (one all-reduce) and the
+    gradient of this rank's own share."""
+    local = torch.stack([v.detach() for v in losses.values()])
+    total = local.clone()
+    dist.all_reduce(total, group=group)
+    return {k: v + (total[i] - local[i]) for i, (k, v) in enumerate(losses.items())}
 
 
 def headnerf_losses(
@@ -35,21 +55,28 @@ def headnerf_losses(
     vgg: Optional[VGG16Features] = None,
     vgg_compute_dtype: Optional[torch.dtype] = None,
     gt_vgg_feats: Optional[Sequence[torch.Tensor]] = None,  # vgg_features(masked GT)
+    data_group=None,               # the mesh's data group: this rank holds B/D frames
 ) -> Dict[str, torch.Tensor]:
     """Data losses (HeadNeRFLossUtils.py:125-156) and their sum `total_loss`
-    (:196-236)."""
+    (:196-236); global means over a mesh's data group when one is given."""
     head = (head_mask >= 0.5).to(gt_rgb.dtype)
     nonhead = 1.0 - head
     res_img = torch.nan_to_num(pred["merge_img"])
+    share, counts = 1.0, (None, None)
+    if data_group is not None:
+        share = 1.0 / dist.get_world_size(data_group)
+        total = torch.stack([head.sum(), nonhead.sum()])
+        dist.all_reduce(total, group=data_group)
+        counts = (total[0], total[1])
     losses = {
-        "bg_loss": torch.mean((pred["bg_img"] - bg_value) ** 2),
-        "head_loss": _masked_mse(res_img, gt_rgb, head),
-        "nonhead_loss": _masked_mse(res_img, bg_value, nonhead),
+        "bg_loss": torch.mean((pred["bg_img"] - bg_value) ** 2) * share,
+        "head_loss": _masked_mse(res_img, gt_rgb, head, counts[0]),
+        "nonhead_loss": _masked_mse(res_img, bg_value, nonhead, counts[1]),
     }
     if vgg is not None:
         masked_gt = None if gt_vgg_feats is not None else gt_rgb * head + bg_value * nonhead
         losses["vgg"] = vgg_perceptual_loss(vgg, res_img, masked_gt,
                                             compute_dtype=vgg_compute_dtype,
-                                            target_feats=gt_vgg_feats)
+                                            target_feats=gt_vgg_feats) * share
     losses["total_loss"] = sum(losses.values())
-    return losses
+    return losses if data_group is None else _global_values(losses, data_group)

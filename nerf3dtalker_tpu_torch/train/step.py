@@ -1,5 +1,6 @@
 """Training and eval steps of the HeadNeRF + Audio2Style pair (port of
-`nerf3dtalker_tpu/train/step.py`, single device).
+`nerf3dtalker_tpu/train/step.py`, on one device or on one rank of a
+(data, rays) mesh).
 
 Mirrors the reference training loop (talker_trainer.py:960-1085): two Adam
 optimizers, one on the NeRF with a StepLR decay (gamma 0.1 every 100
@@ -12,6 +13,29 @@ On the GPU HeadNeRF computes in bf16 through the fused render kernels
 (forward K1, backward K2); on the CPU in f32 through the plain path. The
 stratified jitter and the Audio2Style dropout are drawn from the generator
 the caller passes to `train_step`; `deterministic=True` turns both off.
+
+With a `mesh` (the JAX mesh branch, step.py:211-258) each rank holds its
+shard of the batch (`parallel.mesh.shard_batch`) and the same params:
+
+  * Audio2Style runs over all B frames of the global batch as one sequence
+    (every rank holds the batch's mels) with dropout from the same
+    generator on every rank, and each rank takes its rows of the styles;
+  * the stratified jitter is drawn for the global [B, R, NS+1] and sliced
+    to this rank's rows and rays, so a mesh step draws what the
+    single-rank step draws;
+  * HeadNeRF renders the ray shard through K4 (weight gradients summed over
+    the rays group there) and gathers the maps over the rays group;
+  * the losses are global means (`headnerf_losses(data_group=...)`);
+  * after the backward, one all-reduce (sum) over every rank of every
+    trainable leaf, flattened into one buffer, divided by the rays axis's
+    size. The sum over the data axis is the batch's gradient. The ranks of
+    a rays group hold the same data-local gradient (K4 summed the ray
+    shards, and the decoder, the losses and Audio2Style run replicated
+    there), but only up to the bits: on the GPU the decoder's backward does
+    not give the same bits twice (atomics), so a sum over the data group
+    alone lets the rays columns drift apart. Averaging the rays copies in
+    the same all-reduce gives every rank the same bits, so the non-finite
+    guard and the update agree everywhere.
 """
 
 from __future__ import annotations
@@ -25,6 +49,7 @@ from nerf3dtalker_tpu_torch.config import NeRFConfig, TrainConfig
 from nerf3dtalker_tpu_torch.models.audio import Audio2Style
 from nerf3dtalker_tpu_torch.models.headnerf import HeadNeRF
 from nerf3dtalker_tpu_torch.models.perceptual import VGG16Features
+from nerf3dtalker_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, sync_params
 from nerf3dtalker_tpu_torch.train.losses import headnerf_losses
 from nerf3dtalker_tpu_torch.utils.device import resolve_device
 from nerf3dtalker_tpu_torch.utils.guards import all_finite
@@ -104,6 +129,15 @@ def assemble_codes(batch: Dict[str, torch.Tensor], audio_exp: Optional[torch.Ten
             torch.cat([batch["text"], batch["illu"]], dim=-1))
 
 
+def audio_style_rows(audio: Audio2Style, mels: torch.Tensor, rows: slice,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Audio2Style over the whole frame sequence `mels` [B, 80, 16], then
+    the styles of `rows`: a rank of a mesh's data axis computes what the
+    single-rank step computes for its frames (the BiLSTM reads every frame,
+    the dropout draws [B, ...] from `generator`)."""
+    return audio(mels, generator)[rows]
+
+
 def build_step_fns(
     nerf_cfg: NeRFConfig,
     train_cfg: TrainConfig,
@@ -111,19 +145,23 @@ def build_step_fns(
     vgg: Optional[VGG16Features] = None,
     device: Optional[Union[str, torch.device]] = None,
     use_fused: Optional[bool] = None,
+    mesh: Optional[Mesh] = None,
 ) -> StepFns:
-    """Step functions on `device` (default `cuda`). `use_fused` defaults to
-    the GPU; the compute dtype is bf16 on the GPU and f32 on the CPU.
+    """Step functions on `device` (default `cuda`), or on the device of this
+    rank of `mesh`. `use_fused` defaults to the GPU, and is always on under a
+    mesh (K4: the kernels on the GPU, their plain versions on the CPU); the
+    compute dtype is bf16 on the GPU and f32 on the CPU.
 
     Batch layout (tensors on the device): mels [B, 80, 16], gt_rgb
     [B, H, W, 3], head_mask [B, H, W, 1], iden/expr/text/illu, audio_exp
     [B, 64], Rmat [B, 3, 3], Tvec [B, 3], inv_inmat [B, 3, 3], xy [B, N_r, 2],
     and with a `vgg` vgg_f0..vgg_f3 (the masked-GT VGG planes,
-    `FrameDataset.precompute_gt_vgg`)."""
-    dev = resolve_device(device)
+    `FrameDataset.precompute_gt_vgg`). Under a mesh: this rank's shard, and
+    the global batch's mels."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     on_gpu = dev.type == "cuda"
     if use_fused is None:
-        use_fused = on_gpu
+        use_fused = on_gpu or mesh is not None
     cdt = torch.bfloat16 if on_gpu else torch.float32
     vgg_cdt = cdt if cdt == torch.bfloat16 else None
     bg_value = 1.0 if nerf_cfg.bg_type == "white" else 0.0
@@ -133,33 +171,44 @@ def build_step_fns(
         """Models from seeded CPU generators (NeRF `seed`, audio `seed + 1`),
         moved to the device, and a fresh optimizer."""
         nerf = HeadNeRF(nerf_cfg, compute_dtype=cdt, use_fused=use_fused, device=dev,
-                        generator=torch.Generator().manual_seed(seed))
+                        generator=torch.Generator().manual_seed(seed), mesh=mesh)
         audio = Audio2Style(device=dev, generator=torch.Generator().manual_seed(seed + 1))
+        if mesh is not None:   # the same seeds on every rank; rank 0's values, checked
+            sync_params(list(nerf.parameters()) + list(audio.parameters()), mesh)
         opt = make_optimizer({"nerf": trainable(nerf), "audio": trainable(audio)}, train_cfg)
         return TrainState(nerf, audio, opt, sched)
 
     def forward(state: TrainState, batch, generator: Optional[torch.Generator]):
-        audio_style = state.audio(batch["mels"], generator)
-        shape_code, appea_code = assemble_codes(batch, batch.get("audio_exp"))
         xy = batch["xy"]
+        B, R = xy.shape[:2]
+        rows, rays = slice(None), slice(None)
+        if mesh is not None:    # this rank's part of the global batch and draws
+            B, R = batch["mels"].shape[0], R * mesh.rays
+            rows, rays = mesh.rows(B), mesh.ray_range(R)
+        audio_style = audio_style_rows(state.audio, batch["mels"], rows, generator)
+        shape_code, appea_code = assemble_codes(batch, batch.get("audio_exp"))
         noise = None
         if generator is not None:
-            noise = torch.rand(xy.shape[0], xy.shape[1], nerf_cfg.num_sample_coarse + 1,
-                               generator=generator, device=dev)
+            noise = torch.rand(B, R, nerf_cfg.num_sample_coarse + 1,
+                               generator=generator, device=dev)[rows, rays]
         return state.nerf(xy, shape_code, appea_code, audio_style, batch["Rmat"],
                           batch["Tvec"], batch["inv_inmat"], noise=noise)
 
     def losses_of(pred, batch):
         gt_feats = [batch[f"vgg_f{i}"] for i in range(4)] if vgg is not None else None
         return headnerf_losses(pred, batch["gt_rgb"], batch["head_mask"], bg_value,
-                               vgg=vgg, vgg_compute_dtype=vgg_cdt, gt_vgg_feats=gt_feats)
+                               vgg=vgg, vgg_compute_dtype=vgg_cdt, gt_vgg_feats=gt_feats,
+                               data_group=None if mesh is None else mesh.data_group)
 
     def loss_and_grads(state: TrainState, batch, generator=None):
         """(losses, grads {"nerf": [...], "audio": [...]}) of one batch, in
-        the order of `state.params()`; no update."""
+        the order of `state.params()`; no update. Under a mesh the losses
+        and the gradients are the global batch's, the same on every rank."""
         params = state.params()
         losses = losses_of(forward(state, batch, generator), batch)
         flat = torch.autograd.grad(losses["total_loss"], params["nerf"] + params["audio"])
+        if mesh is not None:
+            flat = all_reduce_sum(flat, scale=1.0 / mesh.rays)
         n = len(params["nerf"])
         return losses, {"nerf": list(flat[:n]), "audio": list(flat[n:])}
 

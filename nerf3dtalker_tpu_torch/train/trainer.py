@@ -8,9 +8,17 @@ per-step seed of the jitter and dropout generator is
 `(seed + epoch) * 100003 + step_in_epoch`, as the JAX trainer derives its
 step keys, so a resumed run draws what the uninterrupted one would.
 
+With a `mesh` (`parallel.mesh`) every rank draws the same global batch
+order and trains on its shard of each batch (`shard_batch`); validation runs
+in batches of the data axis's size (frames that do not divide are skipped,
+with a warning) and every rank reports the same SSIM and PSNR. Only rank 0
+writes checkpoints and metrics.jsonl; every rank loads on resume. The
+kernel launches of the train steps and of validation are counted on every
+rank (`kernel_launches`, `mesh_report`).
+
 Not ported yet: whole epochs as one device program (`_cached_epoch`), the
 native prefetcher, TensorBoard, the profiler trace, LPIPS, validation image
-dumps, `from_checkpoint` and the mesh.
+dumps and `from_checkpoint`.
 """
 
 from __future__ import annotations
@@ -24,10 +32,13 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerf3dtalker_tpu_torch.config import NeRFConfig, TrainConfig
 from nerf3dtalker_tpu_torch.data.dataset import FrameDataset, to_tensors
 from nerf3dtalker_tpu_torch.models.perceptual import load_vgg16
+from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+from nerf3dtalker_tpu_torch.parallel.mesh import Mesh, checksums_agree, shard_batch
 from nerf3dtalker_tpu_torch.train.step import TrainState, build_step_fns
 from nerf3dtalker_tpu_torch.utils import checkpoints as ckpt
 from nerf3dtalker_tpu_torch.utils.device import resolve_device
@@ -53,8 +64,10 @@ class Trainer:
         train_data: FrameDataset,
         val_data: Optional[FrameDataset] = None,
         device: Optional[Union[str, torch.device]] = None,
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = mesh
         self.nerf_cfg, self.train_cfg = nerf_cfg, train_cfg
         self.train_data, self.val_data = train_data, val_data
         # a 1-frame subject still trains under the B=2 default
@@ -62,6 +75,9 @@ class Trainer:
         if self.batch_size != train_cfg.batch_size:
             log.warning("batch_size %d > dataset size %d; training with B=%d",
                         train_cfg.batch_size, len(train_data), self.batch_size)
+        if mesh is not None and self.batch_size % mesh.data:
+            raise ValueError(f"batch {self.batch_size} does not divide over the mesh's "
+                             f"data axis {mesh.data}")
         if len(train_data) % self.batch_size:
             log.warning("dataset size %d not divisible by batch %d: %d frame(s) dropped "
                         "from each epoch", len(train_data), self.batch_size,
@@ -70,7 +86,7 @@ class Trainer:
                if train_cfg.use_vgg_loss else None)
         self.steps_per_epoch = max(1, len(train_data) // self.batch_size)
         self.fns = build_step_fns(nerf_cfg, train_cfg, self.steps_per_epoch, vgg=vgg,
-                                  device=self.device)
+                                  device=self.device, mesh=mesh)
         if vgg is not None:
             vgg_cdt = self.fns.compute_dtype if self.fns.compute_dtype == torch.bfloat16 else None
             bg = 1.0 if nerf_cfg.bg_type == "white" else 0.0
@@ -88,6 +104,9 @@ class Trainer:
         self.history: list = []
         self.start_epoch = 0
         self.generator = torch.Generator(device=self.device)
+        # K1 and K2 launches on this rank, inside the train steps and validation
+        self.kernel_launches = {"train_steps": [0, 0], "validation": [0, 0]}
+        self.is_writer = mesh is None or mesh.rank == 0
 
     # ------------------------------------------------------------- lifecycle
 
@@ -106,16 +125,21 @@ class Trainer:
         return self.state.step
 
     def save(self, metrics: Optional[Dict] = None) -> None:
+        """Rank 0 writes the checkpoint; under a mesh every rank then waits
+        for it, so a rollback never reads a half-written one."""
         if not self.train_cfg.ckpt_dir:
             return
-        ckpt.save_checkpoint(self.train_cfg.ckpt_dir, {
-            "nerf": self.state.nerf.state_dict(),
-            "audio": self.state.audio.state_dict(),
-            "opt": self.state.opt.state_dict(),
-            "config": {"nerf": dataclasses.asdict(self.nerf_cfg),
-                       "train": dataclasses.asdict(self.train_cfg)},
-            "metrics": metrics or {},
-        }, step=self.state.step)
+        if self.is_writer:
+            ckpt.save_checkpoint(self.train_cfg.ckpt_dir, {
+                "nerf": self.state.nerf.state_dict(),
+                "audio": self.state.audio.state_dict(),
+                "opt": self.state.opt.state_dict(),
+                "config": {"nerf": dataclasses.asdict(self.nerf_cfg),
+                           "train": dataclasses.asdict(self.train_cfg)},
+                "metrics": metrics or {},
+            }, step=self.state.step)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # ------------------------------------------------------------- training
 
@@ -126,20 +150,28 @@ class Trainer:
         for i in range(0, len(order) - len(order) % bs, bs):
             idx = order[i:i + bs]
             if self.use_device_cache:
-                yield self.train_data.device_batch(idx)
+                batch = self.train_data.device_batch(idx)
             else:
-                yield to_tensors(self.train_data.batch(idx), self.device)
+                batch = to_tensors(self.train_data.batch(idx), self.device)
+            yield batch if self.mesh is None else shard_batch(batch, self.mesh)
+
+    def _count_launches(self, path: str, before) -> None:
+        counts = self.kernel_launches[path]
+        counts[0] += fr.fused_render_fwd.launches - before[0]
+        counts[1] += fr.fused_render_bwd.launches - before[1]
 
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
         totals: Dict[str, torch.Tensor] = {}
         n = 0
         t0 = time.perf_counter()
+        before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
         for i, batch in enumerate(self._batches(epoch)):
             self.generator.manual_seed(step_seed(self.train_cfg.seed, epoch, i))
             losses = self.fns.train_step(self.state, batch, self.generator)
             for k, v in losses.items():
                 totals[k] = totals[k] + v if k in totals else v
             n += 1
+        self._count_launches("train_steps", before)
         avg = {k: float(v) / max(n, 1) for k, v in totals.items()}   # the epoch's one sync
         avg["sec_per_step"] = (time.perf_counter() - t0) / max(n, 1)
         avg["rays_per_s"] = self.batch_size * self.nerf_cfg.n_rays / max(avg["sec_per_step"], 1e-9)
@@ -147,25 +179,53 @@ class Trainer:
         return avg
 
     def validate(self) -> Dict[str, float]:
+        """Mean SSIM and PSNR over the validation frames, one frame per
+        render; under a mesh one frame per data rank, gathered so that every
+        rank reports the same means."""
         if self.val_data is None:
             return {}
-        ssims, psnrs = [], []
-        for batch in self.val_data.epoch(1, rng=None, drop_last=False):
-            imgs, _ = self.fns.eval_step(self.state, to_tensors(batch, self.device))
-            gt = torch.as_tensor(batch["gt_rgb"], device=self.device)
+        before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
+        bs = 1 if self.mesh is None else self.mesh.data
+        sums = torch.zeros(3, dtype=torch.float64, device=self.device)   # SSIM, PSNR, frames
+        for batch in self.val_data.epoch(bs, rng=None, drop_last=bs > 1):
+            tb = to_tensors(batch, self.device)
+            if self.mesh is not None:
+                tb = shard_batch(tb, self.mesh)
+            imgs, _ = self.fns.eval_step(self.state, tb)
             for j in range(imgs.shape[0]):
-                ssims.append(float(ssim_rgb(imgs[j], gt[j])))
-                psnrs.append(float(psnr(imgs[j], gt[j])))
-        if not ssims:
+                sums += torch.stack([ssim_rgb(imgs[j], tb["gt_rgb"][j]).double(),
+                                     psnr(imgs[j], tb["gt_rgb"][j]).double(),
+                                     sums.new_ones(())])
+        self._count_launches("validation", before)
+        if self.mesh is not None:
+            skipped = len(self.val_data) % bs
+            if skipped:
+                log.warning("validate: %d val frame(s) skipped (val set not divisible by the "
+                            "mesh data axis %d)", skipped, bs)
+            dist.all_reduce(sums)          # every rank's frames; each rays group
+            sums /= self.mesh.rays          # saw its frames Rr times
+        if not sums[2]:
             return {}
-        return {"SSIM": float(np.mean(ssims)), "PSNR": float(np.mean(psnrs))}
+        return {"SSIM": float(sums[0] / sums[2]), "PSNR": float(sums[1] / sums[2])}
+
+    def mesh_report(self) -> Dict:
+        """Every rank's kernel launches ([K1, K2] in the train steps, then in
+        validation) and whether every rank holds bit-identical parameters.
+        Collectives over the whole layout: every rank calls it."""
+        n = dist.get_world_size()
+        counts = torch.zeros(n, 4, dtype=torch.int64, device=self.device)
+        counts[self.mesh.rank] = torch.tensor(self.kernel_launches["train_steps"]
+                                              + self.kernel_launches["validation"])
+        dist.all_reduce(counts)
+        params = [p for ps in self.state.params().values() for p in ps]
+        return {"launches_by_rank": counts.tolist(), "params_identical": checksums_agree(params)}
 
     def train(self, epochs: Optional[int] = None) -> list:
         if self.state is None:
             self.init()
         epochs = epochs or self.train_cfg.epochs
         mlog = None
-        if self.train_cfg.log_dir:
+        if self.train_cfg.log_dir and self.is_writer:
             os.makedirs(self.train_cfg.log_dir, exist_ok=True)
             mlog = open(os.path.join(self.train_cfg.log_dir, "metrics.jsonl"), "a")
         try:

@@ -386,3 +386,68 @@ def test_headnerf_fused_upsampler_matches_plain_path_on_card(cuda):
     for name, a, b in zip(names, grads_f, grads_p):
         assert torch.isfinite(a).all(), name
         assert _rel_l2(a, b) <= UPS_HEAD_GRAD_REL_L2, f"{name}: rel L2 {_rel_l2(a, b):.3e}"
+
+
+# the xᵀ·g probe against its plain version, over max|ref|: `loaded` sums the
+# same bf16 products in f32 in another order; the other modes first form
+# x' = bf16(relu(x·w)), where another f32 summation order can round an
+# element to the neighbouring bf16 value (2^-8 of itself)
+PROBE_RTOL = {"loaded": 1e-5, "computed": 2e-3, "scratch": 2e-3, "f32": 2e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["loaded", "computed", "scratch", "f32"])
+def test_probe_kernel_matches_plain_version(cuda, mode):
+    from nerf3dtalker_tpu_torch.ops.kernels import probe_xtg as px
+
+    g = torch.Generator().manual_seed(4)
+    x, gg = (torch.randn(px.N, n, generator=g).to(cuda, torch.bfloat16) for n in (px.K, px.H))
+    w = (torch.randn(px.K, px.H, generator=g) * 0.05).to(cuda, torch.bfloat16)
+    before = px.probe_xtg.launches
+    out = px.probe_xtg(x, gg, w, mode)
+    torch.cuda.synchronize()
+    assert px.probe_xtg.launches == before + 1
+    ref = px.reference_xtg(x, gg, w, mode)
+    assert out.shape == ref.shape and out.dtype == torch.float32 and torch.isfinite(out).all()
+    err, peak = float((out - ref).abs().max()), float(ref.abs().max())
+    assert err <= PROBE_RTOL[mode] * peak, f"{mode}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
+@pytest.mark.cuda
+def test_k4_on_a_1x1_nccl_mesh_matches_k3(cuda, tmp_path):
+    """K4 on a one-rank NCCL mesh runs the same K1 and K2 as K3 on the same
+    inputs, and NCCL's all-reduce over one rank is the identity: outputs and
+    every gradient (MLP parameters and codes) are bit-identical."""
+    import torch.distributed as dist
+
+    from nerf3dtalker_tpu_torch.parallel.mesh import init_ranks, make_mesh
+
+    init_ranks(0, 1, 0, 1, "cuda", f"file://{tmp_path / 'store'}")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(1, 1)
+        g = torch.Generator().manual_seed(5)
+        B, R = 2, 64
+        mlp = NeRFMLP(63 + 179, 127, hidden=fr.H, out_features=fr.FEAT)
+        mlp.reset_parameters(g)
+        mlp = mlp.to(cuda)
+        codes = [(torch.randn(B, n, generator=g) * 0.3).to(cuda) for n in (179, 127, 64)]
+        pe, zd, zv, _ = _kernel_inputs(cuda, B=B, R=R)
+        gf, gb, gd = _cotangents(cuda, B, R)
+
+        def run(render):
+            leaves = list(mlp.parameters()) + [c.clone().requires_grad_() for c in codes]
+            packed = fr.pack_weights(dict(mlp.named_parameters()), *leaves[-3:])
+            outs = render(pe, zd, zv, packed)
+            loss = (outs[0] * gf).sum() + (outs[1] * gb).sum() + (outs[2] * gd).sum()
+            return [o.detach() for o in outs], torch.autograd.grad(loss, leaves)
+
+        counters = (fr.fused_render_fwd, fr.fused_render_bwd, fr.fused_render_spmd)
+        before = [c.launches for c in counters]
+        k4 = run(lambda *a: fr.fused_render_spmd(*a, mesh, torch.bfloat16))
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 2]
+        k3 = run(lambda *a: fr.fused_render(*a, torch.bfloat16))
+        for a, b in zip(k4[0] + list(k4[1]), k3[0] + list(k3[1])):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

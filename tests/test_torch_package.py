@@ -30,11 +30,20 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_import_rule_covers_the_mesh_and_the_probe():
+    """The rule above reaches the multi-rank modules and the probe's wrapper."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"nerf3dtalker_tpu_torch/parallel/__init__.py",
+            "nerf3dtalker_tpu_torch/parallel/mesh.py",
+            "nerf3dtalker_tpu_torch/parallel/selfcheck.py",
+            "nerf3dtalker_tpu_torch/ops/kernels/probe_xtg.py"} <= names
+
+
 def test_kernel_source_is_in_the_package():
     from nerf3dtalker_tpu_torch.ops.kernels import build
 
     assert build.sources() == ["fused_render_bwd", "fused_render_fwd", "fused_upsampler_bwd",
-                               "fused_upsampler_fwd"]
+                               "fused_upsampler_fwd", "probe_xtg"]
     for name in build.sources():
         assert (build.CSRC / f"{name}.cu").is_file()
         assert build.library_path(name).parent == build.BUILD_DIR
