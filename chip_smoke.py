@@ -13,7 +13,9 @@ Phases (any failure exits non-zero):
                 for the serving merge pass B=4, the training merge pass B=2
                 and the bg pass B=1; K5-bwd at each block for B=2 and B=1),
                 hold it against its plain PyTorch version on the same
-                inputs, and time both with CUDA events;
+                inputs, and time both with CUDA events (K2's launches, the
+                ray kernel and the X^T G core's two, apart with
+                torch.profiler);
   3. serving  — drive `cli animate` at Reso64 (featmap 64, image 512, chunk
                 4) on a wav synthesized from the seed, with seeded weights;
                 count kernel launches, check the frames, and hold the first
@@ -33,8 +35,9 @@ Phases (any failure exits non-zero):
                 bg MSE loss through K1/K2/K5-fwd/K5-bwd (launches counted)
                 against the plain autograd path, every parameter leaf;
   6. probe    — the xᵀ·g probe kernel in its four operand modes at the
-                probe's shapes against their plain versions, timed beside
-                `torch.matmul` of the same bf16 product;
+                probe's shapes against their plain versions, timed per call
+                eagerly and from a CUDA graph beside `torch.matmul` of the
+                same bf16 product (and `torch.mm(..., out_dtype=f32)`);
   7. mesh     — `cli train --data-parallel 2 --ray-parallel 2` at Reso64
                 (B=2, VGG on, one epoch of the synthetic dataset): 4 ranks
                 sharing the one card over gloo, K1 and K2 launches counted on
@@ -48,12 +51,14 @@ Phases (any failure exits non-zero):
                 plain and the fused decoder pair side by side), the
                 `kernels` line, the card's name and power limit, and last
                 the `{"ok": true, "device": ...}` line.
-Without CUDA it exits 1 before printing any result.
+Without CUDA it exits 1 before printing any result. A watchdog ends the run
+with a traceback and exit code 1 after TIME_LIMIT_S seconds.
 """
 
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import math
 import os
@@ -135,6 +140,12 @@ UPS_GRAD_REL_L2 = 3e-2
 
 KERNELS = ("fused_render_fwd", "fused_render_bwd", "fused_upsampler_fwd", "fused_upsampler_bwd",
            "probe_xtg")
+# K2's kernels, by the names the profiler gives them
+K2_PARTS = ("ray_kernel", "xtg_jobs_kernel", "xtg_reduce")
+# the whole run's time limit: about twice the smoke's longest command time
+# on the H100 so far (171 s). A kernel that never ends, or a rank that waits
+# forever, then ends the run with every thread's traceback and exit code 1
+TIME_LIMIT_S = 360
 FRAMES = 8   # served at Reso64 in chunks of 4: two K1 launches
 DEVICE = "cuda"        # of the training phases
 TRAIN_EPOCHS = 2        # cli train at Reso64: 8 synthetic frames, B=2 -> 4 steps an epoch,
@@ -388,6 +399,14 @@ def phase_kernel_bwd(seed: int):
             f"(stash written once, read back by the weight-gradient passes)")
         if not input_grads:   # the training path's variant
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            with torch.no_grad():
+                kernels, _ = device_ms_by_kernel(lambda: fr.fused_render_bwd(
+                    pe, zd, zv, packed, gf, gb, gd, input_grads=False), calls=3)
+            # K2's launches: the ray kernel, then the X^T G core's two
+            rec["parts_ms"] = {part: sum(v for k, v in kernels.items() if part in k)
+                               for part in K2_PARTS} if kernels else None
+            log(f"fused_render_bwd B={B} R={R} parts (torch.profiler, device ms per launch): "
+                + (json.dumps(rec["parts_ms"]) if kernels else "not measured"))
         else:
             rec["input_grads_ms"] = ms
     del scratch
@@ -696,27 +715,35 @@ def phase_train_breakdown(seed: int):
     return rec
 
 
-def profile_steps(step, steps: int):
-    """Device time by kernel over `steps` steady steps (torch.profiler), and
-    the device's busy share of the window's wall time. The profiler's own
-    host overhead lengthens the window, so the idle share is an upper
-    bound. Returns None when the profiler records no device time."""
+def device_ms_by_kernel(fn, calls: int):
+    """(device ms by kernel name per call of fn over `calls` calls, the
+    window's wall ms) from torch.profiler after one warm call; the kernel
+    dict is empty when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
         if us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / steps
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / calls
+    return kernels, wall_ms
+
+
+def profile_steps(step, steps: int):
+    """Device time by kernel over `steps` steady steps (torch.profiler), and
+    the device's busy share of the window's wall time. The profiler's own
+    host overhead lengthens the window, so the idle share is an upper
+    bound. Returns None when the profiler records no device time."""
+    kernels, wall_ms = device_ms_by_kernel(step, steps)
     if not kernels:
         log("train_profile: the profiler recorded no device time (not measured)")
         return None
@@ -1049,10 +1076,30 @@ def phase_breakdown(seed: int):
 
 # ---- the xᵀ·g probe
 
+def graph_ms_per_call(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call of fn with the host out of the way: `calls`
+    calls captured in one CUDA graph, the median CUDA-event time of `reps`
+    replays, divided by `calls`."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm outside the capture (build, attributes)
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps=reps) / calls
+
+
 def phase_probe(seed: int):
     """The probe's four modes at N=1024, K=384, H=384 against their plain
-    versions, each timed over many back-to-back launches, beside
-    `torch.matmul` of the same bf16 product."""
+    versions, each timed per call two ways (200 back-to-back eager calls,
+    host included; 20 calls replayed from a CUDA graph, device only), beside
+    `torch.matmul(x.T, g)` (bf16 out) and, where this torch has it,
+    `torch.mm(x.T, g, out_dtype=torch.float32)`, the probe's own function."""
     import torch
 
     from nerf3dtalker_tpu_torch.ops.kernels import probe_xtg as px
@@ -1063,7 +1110,8 @@ def phase_probe(seed: int):
     gg = torch.randn(px.N, px.H, generator=g).to(DEVICE, bf)
     w = (torch.randn(px.K, px.H, generator=g) * 0.05).to(DEVICE, bf)
     px.probe_xtg.launches = 0
-    rec = {"ms_by_mode": {}, "plain_ms_by_mode": {}, "bound_ms_by_mode": {}, "err_by_mode": {}}
+    rec = {"ms_by_mode": {}, "graph_ms_by_mode": {}, "plain_ms_by_mode": {},
+           "bound_ms_by_mode": {}, "err_by_mode": {}}
     worst = 0.0
     for mode in px.MODES:
         with torch.no_grad():
@@ -1076,24 +1124,53 @@ def phase_probe(seed: int):
                                  f"{PROBE_RTOL[mode]:.0e} of max|ref| {peak:.3e}")
         worst = max(worst, err)
         ms = cuda_ms_per_call(lambda: px.probe_xtg(x, gg, w, mode))
+        graph_ms = graph_ms_per_call(lambda: px.probe_xtg(x, gg, w, mode))
         plain_ms = cuda_ms_per_call(lambda: px.reference_xtg(x, gg, w, mode), calls=20)
         flops = 2.0 * px.N * px.K * px.H * (1 if mode == "loaded" else 2)
         bound_ms, bound_by = bound(flops, tensor_bytes(x, gg, None if mode == "loaded" else w,
                                                        out))
         rec["ms_by_mode"][mode], rec["plain_ms_by_mode"][mode] = ms, plain_ms
+        rec["graph_ms_by_mode"][mode] = graph_ms
         rec["bound_ms_by_mode"][mode], rec["err_by_mode"][mode] = bound_ms, err / peak
-        log(f"probe_xtg {mode}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us), bound "
-            f"{bound_ms * 1e3:.3f} us by {bound_by}; max_abs_err {err:.3e} = {err / peak:.2e} of "
-            f"max|ref| (tolerance {PROBE_RTOL[mode]:.0e})")
-    lib_ms = cuda_ms_per_call(lambda: torch.matmul(x.T, gg))
-    log(f"probe_xtg: torch.matmul(x.T, g) bf16 -> bf16 {lib_ms * 1e3:.2f} us; launches "
-        f"{px.probe_xtg.launches} (the probe is on no path of the system)")
+        log(f"probe_xtg {mode}: {ms * 1e3:.2f} us eager, {graph_ms * 1e3:.2f} us from a graph "
+            f"(plain {plain_ms * 1e3:.2f} us), bound {bound_ms * 1e3:.3f} us by {bound_by}; "
+            f"max_abs_err {err:.3e} = {err / peak:.2e} of max|ref| (tolerance "
+            f"{PROBE_RTOL[mode]:.0e})")
+    launches = px.probe_xtg.launches
+    # `loaded` against torch.matmul in turns (probe, matmul, matmul, probe, twice), each way:
+    # eager calls are host-bound, and the host's load moves during a run
+    matmul = lambda: torch.matmul(x.T, gg)
+    loaded = lambda: px.probe_xtg(x, gg, w, "loaded")
+    turns = {"eager": ([], []), "graph": ([], [])}
+    for _ in range(2):
+        for fn, k in ((loaded, 0), (matmul, 1), (matmul, 1), (loaded, 0)):
+            turns["eager"][k].append(cuda_ms_per_call(fn))
+            turns["graph"][k].append(graph_ms_per_call(fn))
+    rec["ms_by_mode"]["loaded"] = statistics.median(turns["eager"][0])
+    rec["graph_ms_by_mode"]["loaded"] = statistics.median(turns["graph"][0])
+    lib_ms, lib_graph_ms = (statistics.median(turns[k][1]) for k in ("eager", "graph"))
+    try:   # bf16 in, f32 out: the probe's own function, where torch.mm takes out_dtype
+        mm_f32 = lambda: torch.mm(x.T, gg, out_dtype=torch.float32)
+        lib_f32 = mm_f32()
+        lib_f32_ms, lib_f32_graph_ms = cuda_ms_per_call(mm_f32), graph_ms_per_call(mm_f32)
+    except (TypeError, RuntimeError) as exc:
+        lib_f32, lib_f32_ms, lib_f32_graph_ms = None, None, None
+        log(f"probe_xtg: torch.mm(..., out_dtype=torch.float32) not available ({exc})")
+    log(f"probe_xtg: torch.matmul(x.T, g) bf16 -> bf16 {lib_ms * 1e3:.2f} us eager, "
+        f"{lib_graph_ms * 1e3:.2f} us from a graph (medians of 8 turns beside `loaded`)"
+        + ("" if lib_f32 is None else f"; torch.mm(x.T, g, out_dtype=f32) {lib_f32_ms * 1e3:.2f} "
+           f"us eager, {lib_f32_graph_ms * 1e3:.2f} us from a graph")
+        + f"; loaded in the same turns {rec['ms_by_mode']['loaded'] * 1e3:.2f} us eager, "
+        f"{rec['graph_ms_by_mode']['loaded'] * 1e3:.2f} us from a graph; launches {launches} "
+        "(the probe is on no path of the system)")
+    rec.update(library_eager_ms=lib_ms, library_graph_ms=lib_graph_ms,
+               library_f32_eager_ms=lib_f32_ms, library_f32_graph_ms=lib_f32_graph_ms)
     loaded_bound, loaded_by = bound(2.0 * px.N * px.K * px.H, tensor_bytes(x, gg) + px.K * px.H * 4)
     return {"name": "probe_xtg", "route": "cuda",
             "source": "nerf3dtalker_tpu_torch/csrc/probe_xtg.cu",
             "replaces": "scripts/probe_mosaic_bf16T.py:57",
-            "launches": px.probe_xtg.launches,
-            "launches_by_path": {"probe (on no path of the system)": px.probe_xtg.launches},
+            "launches": launches,
+            "launches_by_path": {"probe (on no path of the system)": launches},
             "max_abs_err": worst, "ms": rec["ms_by_mode"]["loaded"],
             "plain_ms": rec["plain_ms_by_mode"]["loaded"], "bound_ms": loaded_bound,
             "bound_by": loaded_by, "library_ms": lib_ms, **rec}
@@ -1369,6 +1446,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1

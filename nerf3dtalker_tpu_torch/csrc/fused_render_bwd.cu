@@ -1,60 +1,93 @@
 // Fused NeRF point-MLP + alpha composite, backward, for Hopper (sm_90a).
 //
 // Replaces nerf3dtalker_tpu/ops/pallas/fused_render.py:fused_render_bwd
-// (body _bwd_kernel, _mlp_tile_fwd_stash). For the cotangents of the
-// forward's outputs (feat [B, R, 256], bg_alpha and depth [B, R]) it
-// recomputes the forward, backpropagates the composite in f32 and the point
-// MLP through all of its layers, and returns every weight and bias gradient
-// in f32: the shared ones summed over every point of every batch row, the
-// per-batch b0 / b5 / br1 summed over the batch row's points. With
-// input_grads it also writes d_pe = g0 w0p^T + g5 w5p^T, d_zd and d_zv.
-// It rounds where the TPU kernel rounds: activations and gradient
+// (body _bwd_kernel, _mlp_tile_fwd_stash; pallas_call at :659). For the
+// cotangents of the forward's outputs (feat [B, R, 256], bg_alpha and depth
+// [B, R]) it recomputes the forward, backpropagates the composite in f32
+// and the point MLP through all of its layers, and returns every weight and
+// bias gradient in f32: the shared ones summed over every point of every
+// batch row, the per-batch b0 / b5 / br1 summed over the batch row's
+// points. With input_grads it also writes d_pe = g0 w0p^T + g5 w5p^T, d_zd
+// and d_zv. It rounds where the TPU kernel rounds: activations and gradient
 // activations in bf16 (ReLU masks applied in f32 before the cast), d_sigma
 // in f32 before its cast, every product and sum accumulated in f32.
 //
-// Bound: compute. Per point the recompute is 1,352,064 MACs, the weight
+// Bound: operations. Per point the recompute is 1,352,064 MACs, the weight
 // gradients as many again and the input-gradient chain 1,302,912 (without
 // the w0p / w5p rows), 8.01 MFLOP against the ~1.3 KB of pe, z and g it
 // must read; at the Reso64 training shape (B=2, R=4096, 524,288 points)
-// that is 4.20 TFLOP, 4.25 ms at the card's 989 TFLOP/s bf16 peak.
+// that is 4.20 TFLOP, 4.25 ms at the card's 989 TFLOP/s bf16 peak. This
+// design also writes every activation and gradient activation once to a
+// bf16 stash and reads it back (7,617 values a point, 8.0 GB at that shape,
+// ~4.8 ms at 3.35 TB/s), so it cannot reach the bound: keeping the stash
+// on chip is the step after this one.
 //
-// Design (a first kernel: simple and right). The TPU kernel accumulates
-// every weight gradient in VMEM across a grid that runs in order; here
-// blocks run in parallel and in no order, and one ray's stash of
-// activations (11 x [64, <=384] bf16, ~475 KB) does not fit in a block's
-// 227 KB of shared memory. So the work is cut in four launches on one
-// stream, all deterministic (no atomics):
-//   1. ray_kernel, one block of 8 warps per ray (64 points), with K1's
-//      layer loop (nvcuda::wmma bf16 -> f32, weights streamed from L2 in
-//      32-row chunks through a cp.async double buffer): the forward
-//      recompute, then the composite backward (one thread, f32), then the
-//      gradient chain d_rgb -> d_r1 -> d_r0 -> g7 .. g0, whose products
-//      with W^T load W as col_major fragments of a column chunk, so no
-//      transposed copy of the weights is made. Every activation and every
-//      gradient activation goes to a bf16 scratch in device memory
-//      (7,617 values a point, 8.0 GB at the Reso64 training shape).
-//   2. xtg_kernel: each dW = X^T G as 64x64 output tiles, the point axis
-//      cut in splits of (at most) 64 whole rays that never cross a batch
-//      row; one block per (tile, split) sums its split into an f32 partial
-//      (128 splits, 0.69 GB of partials at the Reso64 training shape).
-//   3. colsum_kernel: the bias gradients (and dwd = x7^T d_sigma, dbd) as
-//      f32 column sums of the split, one thread per column.
-//   4. reduce_kernel: the partials of the splits added in split order, over
-//      all splits or over the batch row's splits for b0 / b5 / br1.
-// The scratch traffic (8 GB written, read again by 2 and 3) is the cost of
-// this design, not part of the bound. wgmma, TMA, keeping the stash on chip
-// and fusing 2-4 are left for later work.
+// What held the first design back, and what this one does about it
+// (times: the Reso64 training shape on the H100 80GB HBM3 at 700 W; the
+// ray kernel took 37.3 ms and the weight gradients 12.9 ms before):
+//   - the weight gradients ran as 64 x 64 wmma tiles over 128 splits of
+//     the points (0.69 GB of f32 partials), and a column-sum kernel read
+//     every G again with 2-byte loads strided by the row width. Now one
+//     pass of the staged X^T G core (xtg_core.cuh: 128 x 128 tiles, a
+//     3-stage cp.async ring, ldmatrix + mma.sync, two blocks an SM)
+//     computes every dW and, in the blocks that hold output row 0 of a
+//     job, the column sums of the G tiles it stages (the bias gradients);
+//     dwd = x7^T d_sigma and dbd are a narrow job of the same pass. Splits
+//     never cross a batch row (23 a batch row at B=2: 250 MB of partials),
+//     then the splits are added in split order. It reads 24 GB from L2
+//     (each X by 3 column tiles, each G by 3 row tiles), which bounds it.
+//   - the ray kernel's time was not where the first design put it. Timed
+//     with one part switched off at a time: without the epilogue 11.6 ms,
+//     without the stash stores 25.9, without the weight staging 28.7. The
+//     wmma epilogue (each 16x16 tile through shared memory and back) and
+//     the stash stores in the block's critical path took most of it.
+//     Now:
+//     * two rays a block, one warpgroup each: each 64-row ray is one
+//       wgmma tile (m64n192k16 / m64n64k16, bf16 -> f32, A and B read from
+//       shared memory through descriptors, the accumulators in
+//       registers), and every weight chunk staged serves 128 points;
+//     * operands in wgmma's core-matrix layout (8 x 8 bf16 blocks of 128
+//       contiguous bytes, no swizzle), weights staged by cp.async in 32-row
+//       chunks through a 2-slot ring (each layer stages the next one's
+//       first chunk during its last chunk and epilogue);
+//     * the epilogue on the accumulator registers (bias, ReLU, bf16 pairs,
+//       mask bits), written over the layer's own input: one activation
+//       buffer a ray (49,152 bytes) instead of two, which is what fits two
+//       rays in 220,160 bytes of shared memory;
+//     * each layer's output goes to the stash from the next layer's chunk
+//       loop in 16-byte streaming stores (evict-first: the 8 GB stream
+//       otherwise pushes the weights out of L2; 29 -> 24 ms before wgmma);
+//     * the ReLU masks the chain reads (X[0..7], r1) stay in shared memory
+//       as bits in the accumulator layout (26,112 bytes a ray); the MASK
+//       epilogue reads no device memory;
+//     * one warp a ray runs the composite with warp scans (an exclusive
+//       product scan for T, a suffix sum for the d_w w term; f32 results
+//       equal to the serial loop's to rounding).
+//     The steps measured: 37.3 (wmma, one ray a block) -> 28.2 (mma.sync,
+//     register epilogue) -> 23.4 (streaming stash stores) -> 19.2 (32-row
+//     chunks, next chunk 0 staged early) -> 15.8 ms (wgmma, two rays).
+// Left for later work: keeping the stash on chip, and wgmma that runs
+// across chunks instead of one chunk at a time.
+//
+// Launches (one stream, deterministic, no atomics): ray_kernel, one block
+// of two warpgroups per pair of rays (the second absent when B * R is
+// odd): the forward recompute, the composite backward, the gradient chain
+// d_rgb -> d_r1 -> d_r0 -> g7 .. g0 (products with W^T read the staged
+// chunk of W as the K-major B operand, so no transposed copy of the weights
+// is made), every activation and gradient activation to the stash; then
+// xtg_jobs_kernel and xtg_reduce (the core). The only waits are
+// cp.async.wait_group, wgmma.wait_group and __syncthreads: no mbarrier or
+// TMA handshake that could spin.
 
 #include <atomic>
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-using namespace nvcuda;
+#include "xtg_core.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -64,40 +97,40 @@ constexpr int H2 = 192;     // rgb_1 width
 constexpr int PE = 64;      // padded positional encoding width
 constexpr int NS = 64;      // samples per ray
 constexpr int FEAT = 256;   // feature channels
-constexpr int M = NS;       // points per block: one ray
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int MF = M / 16;  // 16-row fragments per block
+constexpr int M = NS;       // points per ray: one warpgroup's 64-row wgmma tile
+constexpr int RAYS = 2;     // rays per block, one warpgroup each
+constexpr int NTHREADS = RAYS * 128;
 constexpr int KC = 32;      // contraction rows per staged weight chunk
-constexpr int PAD = 8;      // bf16 row padding against bank conflicts
-constexpr int LDA = H + PAD;
-constexpr int LDP = PE + PAD;
-constexpr int LDT = KC + PAD;  // row of a staged column chunk of W (for W^T)
+constexpr int WSTAGES = 2;  // weight ring depth: one chunk in flight while one is used
+constexpr int CM = 64;      // bf16 elements of one 8 x 8 core matrix (128 bytes)
 constexpr size_t HH = (size_t)H * H;
+static_assert(M == xtg::BK, "a ray is one row of the X^T G core");
 
-constexpr int SZ_PE = M * LDP * 2;
-constexpr int SZ_ACT = M * LDA * 2;
-constexpr int SZ_W_ROWS = 2 * KC * LDA * 2;
-constexpr int SZ_W_COLS = 2 * H * LDT * 2;
-constexpr int SZ_W = SZ_W_ROWS > SZ_W_COLS ? SZ_W_ROWS : SZ_W_COLS;
-constexpr int SZ_SCR = NWARPS * 256 * 4;
-constexpr int NVEC = 7;     // sig_pre, alpha, t, T, wts, d_sigma (bf16-rounded), d_w
-constexpr int SZ_VEC = NVEC * M * 4;
-constexpr int SZ_DWP = (FEAT / 16) * M * 4;
-constexpr int SZ_GF = FEAT * 4;
-constexpr int OFF_PE = 0;
-constexpr int OFF_A = OFF_PE + SZ_PE;
-constexpr int OFF_B = OFF_A + SZ_ACT;
-constexpr int OFF_W = OFF_B + SZ_ACT;
-constexpr int OFF_SCR = OFF_W + SZ_W;
-constexpr int OFF_VEC = OFF_SCR + SZ_SCR;
-constexpr int OFF_DWP = OFF_VEC + SZ_VEC;
-constexpr int OFF_GF = OFF_DWP + SZ_DWP;
-constexpr int SMEM = OFF_GF + SZ_GF;  // 185,344 bytes
+// Shared memory (bytes). Operands are in wgmma's core-matrix layout: a
+// [rows][width] bf16 matrix is stored as 8 x 8 core matrices of 128
+// contiguous bytes, row group major ([rows / 8][width / 8][8][8]), so a
+// descriptor reads it K-major with LBO = 128 (the next 8 columns) and SBO
+// = width * 16 (the next 8 rows). Per ray (warpgroup):
+constexpr int SZ_ACT = M * H * 2;                   // 49,152: the activations, written in place
+constexpr int SZ_PE = M * PE * 2;                   //  8,192
+constexpr int MASK_X = (H / 64) * 128;              // mask words of an X layer: 6 a thread
+constexpr int MASK_R1 = (H2 / 64) * 128;            // 3 a thread
+constexpr int SZ_MASK = (8 * MASK_X + MASK_R1) * 4; // 26,112: the ReLU masks the chain reads
+constexpr int SZ_VEC = 4 * M * 4;                   //  1,024: sig_pre, wts, d_sigma, d_w
+constexpr int SZ_GF = FEAT * 4;                     //  1,024
+constexpr int R_PE = SZ_ACT;
+constexpr int R_MASK = R_PE + SZ_PE;
+constexpr int R_VEC = R_MASK + SZ_MASK;
+constexpr int R_GF = R_VEC + SZ_VEC;
+constexpr int SZ_RAY = R_GF + SZ_GF;                // 85,504
+// then the weight ring, shared by both rays: slots of [KC][<=384] or
+// [<=384][KC] in core matrices
+constexpr int SLOT = KC * H;                        // bf16 elements
+constexpr int OFF_W = RAYS * SZ_RAY;                // 171,008
+constexpr int SMEM = OFF_W + WSTAGES * SLOT * 2;    // 220,160 bytes
 static_assert(SMEM <= 232448, "shared memory over the per-block limit");
-static_assert(OFF_A % 128 == 0 && OFF_B % 128 == 0 && OFF_W % 128 == 0 &&
-              OFF_SCR % 128 == 0 && OFF_VEC % 128 == 0 && OFF_DWP % 128 == 0 &&
-              OFF_GF % 128 == 0, "smem alignment");
+static_assert(R_PE % 128 == 0 && R_MASK % 128 == 0 && R_VEC % 128 == 0 && R_GF % 128 == 0 &&
+              SZ_RAY % 128 == 0 && OFF_W % 128 == 0, "smem alignment");
 
 // The per-point scratch ("stash"): bf16 [N, width] arrays, N = B * R * NS.
 struct Stash {
@@ -113,181 +146,331 @@ struct Stash {
 };
 constexpr int STASH_WIDTH = PE + 8 * H + H + H2 + FEAT + H2 + H + 8 * H + 1;  // 7,617
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+using xtg::cp_async16;
+using xtg::cp_async_commit;
+using xtg::cp_async_wait;
+using xtg::smem_u32;
+
+// element (row, col) of a core-matrix [rows][width] matrix
+__device__ __forceinline__ int cidx(int row, int col, int width) {
+  return ((row >> 3) * (width >> 3) + (col >> 3)) * CM + (row & 7) * 8 + (col & 7);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// a shared-memory matrix descriptor, no swizzle
+__device__ __forceinline__ uint64_t desc(const bf16* p, int lbo, int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// D[64, n] += A[64, 16] B[16, n], A K-major; B K-major (TB = 0) or N-major (TB = 1)
+template <int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %34;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(TB), "r"(1));
 }
+
+template <int TB>
+__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %99, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 0, %98;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "n"(TB), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma that writes them
+template <int L>
+__device__ __forceinline__ void fence_acc(float (&d)[L]) {
+#pragma unroll
+  for (int i = 0; i < L; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// generic-proxy shared-memory writes (cp.async, stores) visible to wgmma
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One ray's part of the block: its warpgroup and its shared memory.
+struct Ray {
+  bf16* act;        // [M][<=384] core matrices: a layer's input and, in place, its output
+  bf16* pe;         // [M][PE] core matrices
+  uint32_t* mask;   // [8 * MASK_X + MASK_R1]
+  float* sig_pre;
+  float* wts;
+  float* dsig;      // d_sigma_pre rounded to bf16, as f32
+  float* dw;        // d_w from the rgb head: sum_c rgb[p, c] * g_feat[c]
+  float* gf;
+  int t;            // thread within the warpgroup
+  bool live;        // a block's second ray is absent when B * R is odd
+};
 
 enum Epi { RELU_BF16, LINEAR_BF16, MASK_BF16, DOT_COLS, F32_STORE, F32_ADD };
 
-// Where a layer's epilogue puts its [M, N] result (rows of this ray).
+// What a layer's epilogue does with its [M, N] result besides writing it,
+// in place, to the ray's activations (RELU / LINEAR / MASK).
 struct EpiArgs {
-  bf16* out = nullptr;          // shared [M, LDA] bf16 (RELU / LINEAR / MASK)
-  bf16* stash = nullptr;        // device [M, N] bf16 copy, or null
-  const bf16* mask = nullptr;   // device [M, N] activation: v * (act > 0) (MASK)
-  const float* rowv = nullptr;  // shared [M]; with colv, v += rowv[r] * colv[c] (MASK)
-  const bf16* colv = nullptr;   // device [N]
-  const float* gf = nullptr;    // shared [N] (DOT_COLS)
-  float* dwp = nullptr;         // shared [N / 16][M] per-strip row dots (DOT_COLS)
-  float* f32 = nullptr;         // device [M, N] f32 (F32_STORE / F32_ADD)
+  uint32_t* bits = nullptr;        // mask words: (act > 0) of the output (RELU), or null
+  const uint32_t* mask = nullptr;  // mask words of act: v * (act > 0) (MASK)
+  const float* rowv = nullptr;     // shared [M]; with colv, v += rowv[r] * colv[c] (MASK)
+  const bf16* colv = nullptr;      // device [N]
+  float* f32 = nullptr;            // device [M, N] f32 (F32_STORE / F32_ADD)
 };
 
-// acc[M, N] = a1[M, k1] @ op(w1) + a2[M, k2] @ op(w2) (+ bias), then EPI.
-// a1 / a2 are bf16 in shared memory. op(w) = w for TRANS == false, w being
-// [K, N] row-major in device memory and staged KC rows at a time; op(w) =
-// w^T for TRANS == true, w being [N, K] row-major and staged KC columns at a
-// time (a col_major fragment of the staged chunk is a tile of w^T). k2 == 0
-// means no second operand (only the forward's skip layer fea_5 has one).
-// Starts and ends with every warp past a __syncthreads, so consecutive
-// layers need no barrier between them.
-template <int N, Epi EPI, bool TRANS>
-__device__ __forceinline__ void layer(
-    const bf16* a1, int lda1, int k1, const bf16* __restrict__ w1,
-    const bf16* a2, int lda2, int k2, const bf16* __restrict__ w2,
-    const float* __restrict__ bias, bf16* wbuf, float* scratch, const EpiArgs& e) {
-  constexpr int NF = N / 16;
-  constexpr int NJ = (NF + NWARPS - 1) / NWARPS;
-  constexpr int LDW = N + PAD;
-  constexpr int STAGE = TRANS ? N * LDT : KC * LDW;
-  using BLayout = typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// A layer output in the ray's activations ([M][width] core matrices) on its
+// way to the stash ([M, width] in device memory): the next layer, which
+// reads it, copies it out in 16-byte stores spread over its own chunk loop.
+// Every stash store is a streaming store (st.global.cs, evict-first):
+// written once and read back only by the next launch, the 8 GB would
+// otherwise push the weights, which every block re-reads, out of L2.
+struct Drain {
+  const bf16* src = nullptr;
+  bf16* dst = nullptr;   // null: nothing to copy (or an absent ray)
+  int width = 0;
+};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF][NJ];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int n1 = k1 / KC;
-  const int n = n1 + k2 / KC;
-  auto stage = [&](int c) {
-    bf16* dst = wbuf + (c & 1) * STAGE;
-    if constexpr (TRANS) {
-      // rows of w [N, k1], columns c*KC .. c*KC + KC: 4 copies of 16 bytes a row
-      for (int i = threadIdx.x; i < N * (KC / 8); i += NTHREADS) {
-        const int r = i >> 2, q = i & 3;
-        cp_async16(dst + r * LDT + q * 8, w1 + (size_t)r * k1 + c * KC + q * 8);
-      }
-    } else {
-      constexpr int CPR = N / 8;  // 16-byte copies per weight row
-      const bf16* src = c < n1 ? w1 + (size_t)c * KC * N : w2 + (size_t)(c - n1) * KC * N;
-      for (int i = threadIdx.x; i < KC * CPR; i += NTHREADS) {
-        const int r = i / CPR, q = i - r * CPR;
-        cp_async16(dst + r * LDW + q * 8, src + (size_t)r * N + q * 8);
-      }
-    }
-    cp_async_commit();
-  };
-
-  stage(0);
-  for (int c = 0; c < n; ++c) {
-    if (c + 1 < n) {
-      stage(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* wt = wbuf + (c & 1) * STAGE;
-    const bf16* a = c < n1 ? a1 + c * KC : a2 + (c - n1) * KC;
-    const int lda = c < n1 ? lda1 : lda2;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[MF];
-#pragma unroll
-      for (int i = 0; i < MF; ++i) wmma::load_matrix_sync(fa[i], a + i * 16 * lda + kk, lda);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int nf = warp + j * NWARPS;
-        if (nf < NF) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb;
-          if constexpr (TRANS)
-            wmma::load_matrix_sync(fb, wt + nf * 16 * LDT + kk, LDT);
-          else
-            wmma::load_matrix_sync(fb, wt + kk * LDW + nf * 16, LDW);
-#pragma unroll
-          for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();  // the buffer is refilled by stage(c + 2)
+// items [begin, end) of a drain, 8 values each, by the ray's warpgroup
+__device__ __forceinline__ void drain_items(const Drain& d, int t, int begin, int end) {
+  if (d.dst == nullptr) return;
+  const int q = d.width / 8;
+  for (int it = begin + t; it < end; it += 128) {
+    const int r = it / q, k = it - r * q;
+    __stcs(reinterpret_cast<uint4*>(d.dst + (size_t)r * d.width + k * 8),
+           *reinterpret_cast<const uint4*>(d.src + ((r >> 3) * q + k) * CM + (r & 7) * 8));
   }
+}
 
-  float* scr = scratch + warp * 256;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int nf = warp + j * NWARPS;
-    if (nf >= NF) continue;
-#pragma unroll
-    for (int i = 0; i < MF; ++i) {
-      wmma::store_matrix_sync(scr, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      if constexpr (EPI == DOT_COLS) {
-        // row i*16 + lane: sum over the strip's 16 columns of
-        // (acc + bias) * gf, in column order
-        if (lane < 16) {
-          float s = 0.0f;
-#pragma unroll
-          for (int c = 0; c < 16; ++c) {
-            const int col = nf * 16 + c;
-            s += (scr[lane * 16 + c] + bias[col]) * e.gf[col];
-          }
-          e.dwp[nf * M + i * 16 + lane] = s;
-        }
-      } else {
-        // lane's 8 elements of the 16x16 tile: rows 2t + lane / 16, column lane % 16
-        const int col = nf * 16 + (lane & 15);
-        float keep[8];  // MASK: the activation's (act > 0), all 8 loads in flight together
-        if constexpr (EPI == MASK_BF16) {
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            const int row = i * 16 + 2 * t + (lane >> 4);
-            keep[t] = __bfloat162float(e.mask[(size_t)row * N + col]) > 0.0f ? 1.0f : 0.0f;
-          }
-        }
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int q = lane + 32 * t, row = i * 16 + (q >> 4);
-          float v = scr[q];
-          if (bias != nullptr) v += bias[col];
-          if constexpr (EPI == F32_STORE) {
-            e.f32[(size_t)row * N + col] = v;
-          } else if constexpr (EPI == F32_ADD) {
-            e.f32[(size_t)row * N + col] += v;
-          } else {
-            if constexpr (EPI == RELU_BF16) v = fmaxf(v, 0.0f);
-            if constexpr (EPI == MASK_BF16) {
-              if (e.rowv != nullptr) v += e.rowv[row] * __bfloat162float(e.colv[col]);
-              v *= keep[t];
-            }
-            const bf16 h = __float2bfloat16(v);
-            e.out[row * LDA + col] = h;
-            if (e.stash != nullptr) e.stash[(size_t)row * N + col] = h;
-          }
-        }
-      }
-      __syncwarp();
+// Chunk c of a layer's weights into a ring slot, in core matrices
+// [n / 8][KC / 8][8][8]: for op(w) = w (w [k1][n] row-major) the rows of a
+// core matrix are k (the B operand N-major); for op(w) = w^T (w [n][k1])
+// they are n (K-major). No transposed copy of the weights is made.
+__device__ __forceinline__ void stage_weights(bf16* slot, const bf16* __restrict__ w, int n, int k1,
+                                              int c, bool trans) {
+  if (trans) {
+    for (int i = threadIdx.x; i < n * (KC / 8); i += NTHREADS) {
+      const int r = i / (KC / 8), q = i % (KC / 8);
+      cp_async16(slot + ((r >> 3) * (KC / 8) + q) * CM + (r & 7) * 8,
+                 w + (size_t)r * k1 + c * KC + q * 8);
+    }
+  } else {
+    const int cpr = n / 8;
+    for (int i = threadIdx.x; i < KC * cpr; i += NTHREADS) {
+      const int r = i / cpr, q = i - r * cpr;
+      cp_async16(slot + (q * (KC / 8) + (r >> 3)) * CM + (r & 7) * 8,
+                 w + (size_t)(c * KC + r) * n + q * 8);
     }
   }
 }
 
-__device__ __forceinline__ EpiArgs to(bf16* out, bf16* stash, const bf16* mask = nullptr) {
+// The first weight chunk of a layer, staged by the layer before it during
+// its last chunk and its epilogue, so that no layer starts on an L2 round
+// trip.
+struct Chunk0 {
+  const bf16* w = nullptr;   // the layer's first weight operand; null: none
+  int n = 0, k1 = 0;         // its N and k1
+  bool trans = false;
+};
+
+// acc[M, N] = a1[M, k1] @ op(w1) + a2[M, k2] @ op(w2) (+ bias), then EPI,
+// for each ray of the block at once. a1 / a2 are the ray's core-matrix
+// operands of widths ka1 / ka2. op(w) = w for TRANS == false (w [K, N]
+// row-major), w^T for TRANS == true (w [N, K] row-major). k2 == 0 means no
+// second operand (only the forward's skip layer fea_5 has one). Weight
+// chunks of KC rows come through a 2-slot cp.async ring shared by both
+// rays; each warpgroup multiplies its ray's 64 rows by the chunk with
+// wgmma (64 x 192 or 64 x 64 pieces of N), the accumulators in registers,
+// and its epilogue writes the result over the input it has consumed.
+// `drain` (the previous layer's output, which this layer reads) goes to the
+// stash a slice a chunk. With `staged0` the previous layer has staged this
+// layer's chunk 0 already; `next` is the next layer's chunk 0, staged here
+// once slot 0 is free. Starts with every warp past a __syncthreads; ends
+// without one (a reader of the activations outside a layer syncs first).
+template <int N, Epi EPI, bool TRANS>
+__device__ __forceinline__ void layer(
+    const Ray& ry, const bf16* a1, int ka1, int k1, const bf16* __restrict__ w1,
+    const bf16* a2, int ka2, int k2, const bf16* __restrict__ w2,
+    const float* __restrict__ bias, bf16* wbuf, const EpiArgs& e, const Drain& drain,
+    bool staged0, const Chunk0& next) {
+  constexpr int SEG = N % 192 == 0 ? 192 : 64;   // wgmma widths: 192 or 64 columns
+  constexpr int NSEG = N / SEG;
+  constexpr int TB = TRANS ? 0 : 1;
+  static_assert(N % SEG == 0 && N <= H, "layer width");
+  static_assert(WSTAGES == 2, "chunk 0 of the next layer goes to slot 0");
+  const int t = ry.t, w4 = t >> 5, lane = t & 31, g = lane >> 2, tq = lane & 3;
+
+  // acc[s][4 j + 2 r + i]: rows 16 w4 + g + 8 r, column s SEG + 8 j + 2 tq + i
+  float acc[NSEG][SEG / 2];
+#pragma unroll
+  for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+    for (int i = 0; i < SEG / 2; ++i) acc[s][i] = 0.0f;
+
+  const int n1 = k1 / KC;
+  const int n = n1 + k2 / KC;
+  if (n % WSTAGES != 0) __trap();   // the last chunk would hold slot 0
+  if (!staged0) stage_weights(wbuf, w1, N, k1, 0, TRANS);
+  cp_async_commit();
+  for (int c = 0; c < n; ++c) {
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();   // chunk c has landed; every warpgroup is past chunk c - 1
+    if (c + 1 < n) {
+      const bool first = c + 1 < n1;
+      stage_weights(wbuf + ((c + 1) % WSTAGES) * SLOT, first ? w1 : w2, N, first ? k1 : k2,
+                    first ? c + 1 : c + 1 - n1, TRANS);
+    } else if (next.w != nullptr) {
+      stage_weights(wbuf, next.w, next.n, next.k1, 0, next.trans);   // slot 0: chunk c - 1's
+    }
+    cp_async_commit();
+    const bf16* wt = wbuf + (c % WSTAGES) * SLOT;
+    const bf16* a = c < n1 ? a1 : a2;
+    const int ka = c < n1 ? ka1 : ka2, kb = (c < n1 ? c : c - n1) * KC;
+#pragma unroll
+    for (int s = 0; s < NSEG; ++s) fence_acc(acc[s]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      const uint64_t da = desc(a + ((kb + 16 * ks) >> 3) * CM, 128, ka * 16);
+#pragma unroll
+      for (int s = 0; s < NSEG; ++s) {
+        const uint64_t db = desc(wt + ((s * SEG / 8) * (KC / 8) + 2 * ks) * CM, 128, KC * 16);
+        if constexpr (SEG == 192)
+          wgmma_n192<TB>(acc[s], da, db);
+        else
+          wgmma_n64<TB>(acc[s], da, db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int s = 0; s < NSEG; ++s) fence_acc(acc[s]);
+    const int total = M * (drain.width / 8), per = (total + n - 1) / n;
+    drain_items(drain, t, c * per, min(total, (c + 1) * per));
+  }
+  __syncthreads();   // every product and every drain read is done: the input may be overwritten
+
+  if constexpr (EPI == DOT_COLS) {
+    // per row: the sum over its columns of (acc + bias) * gf; each thread
+    // holds a quarter of them, the lanes tq = 0..3 of a row the rest
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+        for (int j = 0; j < SEG / 8; ++j) {
+          const int col = s * SEG + 8 * j + 2 * tq;
+          sum += (acc[s][4 * j + 2 * r] + bias[col]) * ry.gf[col] +
+                 (acc[s][4 * j + 2 * r + 1] + bias[col + 1]) * ry.gf[col + 1];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (tq == 0) ry.dw[16 * w4 + g + 8 * r] = sum;
+    }
+  } else {
+    constexpr int WORDS = N / 64;   // mask words a thread: N / 2 values
+    uint32_t keep[WORDS], word[WORDS];
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      word[k] = 0;
+      keep[k] = 0;
+      if constexpr (EPI == MASK_BF16) keep[k] = e.mask[k * 128 + t];
+    }
+#pragma unroll
+    for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+      for (int j = 0; j < SEG / 8; ++j) {
+        const int col = s * SEG + 8 * j + 2 * tq;
+        float b0 = 0.0f, b1 = 0.0f;
+        if (bias != nullptr) {
+          b0 = bias[col];
+          b1 = bias[col + 1];
+        }
+        float c0 = 0.0f, c1 = 0.0f;   // MASK: colv at the two columns
+        if constexpr (EPI == MASK_BF16) {
+          if (e.rowv != nullptr) {
+            c0 = __bfloat162float(e.colv[col]);
+            c1 = __bfloat162float(e.colv[col + 1]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * w4 + g + 8 * r;
+          float v0 = acc[s][4 * j + 2 * r] + b0, v1 = acc[s][4 * j + 2 * r + 1] + b1;
+          const int bit = ((s * (SEG / 8) + j) * 2 + r) * 2;   // this pair's first bit
+          if constexpr (EPI == F32_STORE || EPI == F32_ADD) {
+            if (ry.live) {
+              float2* dst = reinterpret_cast<float2*>(e.f32 + (size_t)row * N + col);
+              if constexpr (EPI == F32_ADD) {
+                const float2 o = *dst;
+                v0 += o.x;
+                v1 += o.y;
+              }
+              *dst = make_float2(v0, v1);
+            }
+          } else {
+            if constexpr (EPI == RELU_BF16) {
+              v0 = fmaxf(v0, 0.0f);
+              v1 = fmaxf(v1, 0.0f);
+            }
+            if constexpr (EPI == MASK_BF16) {
+              if (e.rowv != nullptr) {
+                const float rv = e.rowv[row];
+                v0 += rv * c0;
+                v1 += rv * c1;
+              }
+              v0 *= (keep[bit >> 5] >> (bit & 31)) & 1u ? 1.0f : 0.0f;
+              v1 *= (keep[bit >> 5] >> ((bit + 1) & 31)) & 1u ? 1.0f : 0.0f;
+            }
+            const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<__nv_bfloat162*>(ry.act + cidx(row, col, N)) = hv;
+            if constexpr (EPI == RELU_BF16) {
+              word[bit >> 5] |= (__low2float(hv) > 0.0f ? 1u : 0u) << (bit & 31);
+              word[bit >> 5] |= (__high2float(hv) > 0.0f ? 1u : 0u) << ((bit + 1) & 31);
+            }
+          }
+        }
+      }
+    if constexpr (EPI == RELU_BF16) {
+      if (e.bits != nullptr) {
+#pragma unroll
+        for (int k = 0; k < WORDS; ++k) e.bits[k * 128 + t] = word[k];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ EpiArgs masks(uint32_t* bits, const uint32_t* mask) {
   EpiArgs e;
-  e.out = out;
-  e.stash = stash;
+  e.bits = bits;
   e.mask = mask;
   return e;
 }
 
+// 8 f32 -> 8 bf16 (round to nearest) in one 16-byte word
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    w[k] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return u;
+}
+
+// Two rays a block, one warpgroup each (ray 2 blockIdx.x + warpgroup).
 __global__ void __launch_bounds__(NTHREADS, 1) ray_kernel(
     const float* __restrict__ pe, const float* __restrict__ zd,
     const float* __restrict__ zv, const float* __restrict__ gfeat,
@@ -300,348 +483,270 @@ __global__ void __launch_bounds__(NTHREADS, 1) ray_kernel(
     const float* __restrict__ b5, const float* __restrict__ bd,
     const float* __restrict__ br0, const float* __restrict__ br1,
     const float* __restrict__ br2, float* __restrict__ dpe,
-    float* __restrict__ dzd, float* __restrict__ dzv, Stash st, int R) {
+    float* __restrict__ dzd, float* __restrict__ dzv, Stash st, int R, int rays) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* pe_s = reinterpret_cast<bf16*>(smem + OFF_PE);
-  bf16* xa = reinterpret_cast<bf16*>(smem + OFF_A);
-  bf16* xb = reinterpret_cast<bf16*>(smem + OFF_B);
+  const int wg = threadIdx.x >> 7;
+  unsigned char* base = smem + wg * SZ_RAY;
+  Ray ry;
+  ry.act = reinterpret_cast<bf16*>(base);
+  ry.pe = reinterpret_cast<bf16*>(base + R_PE);
+  ry.mask = reinterpret_cast<uint32_t*>(base + R_MASK);
+  ry.sig_pre = reinterpret_cast<float*>(base + R_VEC);
+  ry.wts = ry.sig_pre + M;
+  ry.dsig = ry.wts + M;
+  ry.dw = ry.dsig + M;
+  ry.gf = reinterpret_cast<float*>(base + R_GF);
+  ry.t = threadIdx.x & 127;
   bf16* wbuf = reinterpret_cast<bf16*>(smem + OFF_W);
-  float* scratch = reinterpret_cast<float*>(smem + OFF_SCR);
-  float* sig_pre = reinterpret_cast<float*>(smem + OFF_VEC);
-  float* alpha = sig_pre + M;
-  float* tv = alpha + M;
-  float* trans = tv + M;
-  float* wts = trans + M;
-  float* dsig = wts + M;   // d_sigma_pre rounded to bf16, as f32
-  float* dw = dsig + M;    // d_w from the rgb head: sum_c rgb[p, c] * g_feat[c]
-  float* dwp = reinterpret_cast<float*>(smem + OFF_DWP);
-  float* gf = reinterpret_cast<float*>(smem + OFF_GF);
 
-  const int ray = blockIdx.x;  // b * R + r
-  const int b = ray / R;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ray = blockIdx.x * RAYS + wg;   // b * R + r
+  ry.live = ray < rays;
+  const int b = (ry.live ? ray : blockIdx.x * RAYS) / R;
+  const int t = ry.t, warp4 = t >> 5, lane = t & 31;
   const size_t p0 = (size_t)ray * M;  // the ray's first point
+  uint32_t* mx = ry.mask;             // [8][MASK_X]
+  uint32_t* mr1 = mx + 8 * MASK_X;
+  bf16* act = ry.act;
 
-  // pe [64 points, 64] f32 -> bf16, in shared memory and in the stash
-  const float4* pe4 = reinterpret_cast<const float4*>(pe + p0 * PE);
-  for (int i = tid; i < M * PE / 4; i += NTHREADS) {
-    const float4 v = pe4[i];
-    const int p = i / (PE / 4), c = (i - p * (PE / 4)) * 4;
-    const bf16 h[4] = {__float2bfloat16(v.x), __float2bfloat16(v.y), __float2bfloat16(v.z),
-                       __float2bfloat16(v.w)};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      pe_s[p * LDP + c + k] = h[k];
-      st.pe[(p0 + p) * PE + c + k] = h[k];
+  // pe [64 points, 64] f32 -> bf16, in shared memory and in the stash, 8 values a thread
+  for (int i = t; i < M * PE / 8; i += 128) {
+    const int p = i / (PE / 8), c = (i - p * (PE / 8)) * 8;
+    float f[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (ry.live) {
+      const float4* src = reinterpret_cast<const float4*>(pe + (p0 + p) * PE + c);
+      const float4 u = src[0], v = src[1];
+      f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+      f[4] = v.x; f[5] = v.y; f[6] = v.z; f[7] = v.w;
     }
+    const uint4 h = pack8(f);
+    *reinterpret_cast<uint4*>(ry.pe + cidx(p, c, PE)) = h;
+    if (ry.live) __stcs(reinterpret_cast<uint4*>(st.pe + (p0 + p) * PE + c), h);
   }
-  for (int c = tid; c < FEAT; c += NTHREADS) gf[c] = gfeat[(size_t)ray * FEAT + c];
+  for (int c = t; c < FEAT; c += 128) ry.gf[c] = ry.live ? gfeat[(size_t)ray * FEAT + c] : 0.0f;
 
-  // ---- forward recompute, every activation stashed
+  // ---- forward recompute, every activation stashed (each by the layer
+  // that reads it), every ReLU mask kept as bits; each layer stages the
+  // next one's first weight chunk
   bf16* const* X = st.x;
-  layer<H, RELU_BF16, false>(pe_s, LDP, PE, w0p, nullptr, 0, 0, nullptr, b0 + (size_t)b * H,
-                             wbuf, scratch, to(xa, X[0] + p0 * H));           // fea_0
-  layer<H, RELU_BF16, false>(xa, LDA, H, wh, nullptr, 0, 0, nullptr, bh, wbuf, scratch,
-                             to(xb, X[1] + p0 * H));                          // fea_1
-  layer<H, RELU_BF16, false>(xb, LDA, H, wh + HH, nullptr, 0, 0, nullptr, bh + H, wbuf,
-                             scratch, to(xa, X[2] + p0 * H));                 // fea_2
-  layer<H, RELU_BF16, false>(xa, LDA, H, wh + 2 * HH, nullptr, 0, 0, nullptr, bh + 2 * H,
-                             wbuf, scratch, to(xb, X[3] + p0 * H));           // fea_3
-  layer<H, RELU_BF16, false>(xb, LDA, H, wh + 3 * HH, nullptr, 0, 0, nullptr, bh + 3 * H,
-                             wbuf, scratch, to(xa, X[4] + p0 * H));           // fea_4
-  layer<H, RELU_BF16, false>(pe_s, LDP, PE, w5p, xa, LDA, H, w5x, b5 + (size_t)b * H, wbuf,
-                             scratch, to(xb, X[5] + p0 * H));                 // fea_5 (skip)
-  layer<H, RELU_BF16, false>(xb, LDA, H, wh + 4 * HH, nullptr, 0, 0, nullptr, bh + 4 * H,
-                             wbuf, scratch, to(xa, X[6] + p0 * H));           // fea_6
-  layer<H, RELU_BF16, false>(xa, LDA, H, wh + 5 * HH, nullptr, 0, 0, nullptr, bh + 5 * H,
-                             wbuf, scratch, to(xb, X[7] + p0 * H));           // fea_7
-  __syncthreads();  // x7 = xb complete before the density head reads it
+  auto dr = [&](bf16* dst, int width) {
+    Drain d;
+    d.src = act;
+    d.dst = ry.live ? dst : nullptr;
+    d.width = width;
+    return d;
+  };
+  auto nx = [](const bf16* w, int n, int k1, bool trans) {
+    Chunk0 c;
+    c.w = w;
+    c.n = n;
+    c.k1 = k1;
+    c.trans = trans;
+    return c;
+  };
+  const EpiArgs plain;
+  layer<H, RELU_BF16, false>(ry, ry.pe, PE, PE, w0p, nullptr, 0, 0, nullptr, b0 + (size_t)b * H,
+                             wbuf, masks(mx, nullptr), Drain(), false,
+                             nx(wh, H, H, false));                                     // fea_0
+  layer<H, RELU_BF16, false>(ry, act, H, H, wh, nullptr, 0, 0, nullptr, bh, wbuf,
+                             masks(mx + MASK_X, nullptr), dr(X[0] + p0 * H, H), true,
+                             nx(wh + HH, H, H, false));                                // fea_1
+  layer<H, RELU_BF16, false>(ry, act, H, H, wh + HH, nullptr, 0, 0, nullptr, bh + H, wbuf,
+                             masks(mx + 2 * MASK_X, nullptr), dr(X[1] + p0 * H, H), true,
+                             nx(wh + 2 * HH, H, H, false));                            // fea_2
+  layer<H, RELU_BF16, false>(ry, act, H, H, wh + 2 * HH, nullptr, 0, 0, nullptr, bh + 2 * H,
+                             wbuf, masks(mx + 3 * MASK_X, nullptr), dr(X[2] + p0 * H, H), true,
+                             nx(wh + 3 * HH, H, H, false));                            // fea_3
+  layer<H, RELU_BF16, false>(ry, act, H, H, wh + 3 * HH, nullptr, 0, 0, nullptr, bh + 3 * H,
+                             wbuf, masks(mx + 4 * MASK_X, nullptr), dr(X[3] + p0 * H, H), true,
+                             nx(w5p, H, PE, false));                                   // fea_4
+  layer<H, RELU_BF16, false>(ry, ry.pe, PE, PE, w5p, act, H, H, w5x, b5 + (size_t)b * H, wbuf,
+                             masks(mx + 5 * MASK_X, nullptr), dr(X[4] + p0 * H, H), true,
+                             nx(wh + 4 * HH, H, H, false));                            // fea_5 (skip)
+  layer<H, RELU_BF16, false>(ry, act, H, H, wh + 4 * HH, nullptr, 0, 0, nullptr, bh + 4 * H,
+                             wbuf, masks(mx + 6 * MASK_X, nullptr), dr(X[5] + p0 * H, H), true,
+                             nx(wh + 5 * HH, H, H, false));                            // fea_6
+  layer<H, RELU_BF16, false>(ry, act, H, H, wh + 5 * HH, nullptr, 0, 0, nullptr, bh + 5 * H,
+                             wbuf, masks(mx + 7 * MASK_X, nullptr), dr(X[6] + p0 * H, H), true,
+                             nx(wr0, H, H, false));                                    // fea_7
+  __syncthreads();   // x7 complete before the density head reads it
 
   // density head: sigma_pre = x7 @ wd[:, 0] + bd, f32
-  for (int p = warp; p < M; p += NWARPS) {
+  for (int p = warp4; p < M; p += 4) {
     float s = 0.0f;
     for (int k = lane; k < H; k += 32)
-      s += __bfloat162float(xb[p * LDA + k]) * __bfloat162float(wd[k]);
+      s += __bfloat162float(act[cidx(p, k, H)]) * __bfloat162float(wd[k]);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) sig_pre[p] = s + bd[0];
+    if (lane == 0) ry.sig_pre[p] = s + bd[0];
   }
 
-  layer<H, LINEAR_BF16, false>(xb, LDA, H, wr0, nullptr, 0, 0, nullptr, br0, wbuf, scratch,
-                               to(xa, st.r0 + p0 * H));                       // rgb_0
-  layer<H2, RELU_BF16, false>(xa, LDA, H, wr1, nullptr, 0, 0, nullptr, br1 + (size_t)b * H2,
-                              wbuf, scratch, to(xb, st.r1 + p0 * H2));        // rgb_1
-  {
-    EpiArgs e;
-    e.gf = gf;
-    e.dwp = dwp;
-    layer<FEAT, DOT_COLS, false>(xb, LDA, H2, wr2, nullptr, 0, 0, nullptr, br2, wbuf,
-                                 scratch, e);                                 // rgb_2 . g_feat
-  }
-  __syncthreads();
-  if (tid < M) {
-    float s = 0.0f;
-    for (int f = 0; f < FEAT / 16; ++f) s += dwp[f * M + tid];
-    dw[tid] = s;
-  }
+  layer<H, LINEAR_BF16, false>(ry, act, H, H, wr0, nullptr, 0, 0, nullptr, br0, wbuf, plain,
+                               dr(X[7] + p0 * H, H), true, nx(wr1, H2, H, false));     // rgb_0
+  layer<H2, RELU_BF16, false>(ry, act, H, H, wr1, nullptr, 0, 0, nullptr,
+                              br1 + (size_t)b * H2, wbuf, masks(mr1, nullptr),
+                              dr(st.r0 + p0 * H, H), true, nx(wr2, FEAT, H2, false));  // rgb_1
+  layer<FEAT, DOT_COLS, false>(ry, act, H2, H2, wr2, nullptr, 0, 0, nullptr, br2, wbuf, plain,
+                               dr(st.r1 + p0 * H2, H2), true,
+                               nx(wr2, H2, FEAT, true));                               // rgb_2 . g_feat
   __syncthreads();
 
-  // ---- composite forward and backward, one thread, f32
-  if (tid == 0) {
-    const float* zdr = zd + p0;
-    const float* zvr = zv + p0;
-    float tr = 1.0f;
-    for (int p = 0; p < M; ++p) {
-      const float a = 1.0f - expf(-fmaxf(sig_pre[p], 0.0f) * zdr[p]);
-      const float t = 1.0f - a + 1e-10f;
-      alpha[p] = a;
-      tv[p] = t;
-      trans[p] = tr;
-      wts[p] = a * tr;
-      tr *= t;
+  // ---- composite forward and backward, one warp a ray, two samples a lane, f32
+  if (warp4 == 0) {
+    constexpr unsigned FULL = 0xffffffffu;
+    const int p = 2 * lane;   // this lane's samples p, p + 1
+    float2 zd2 = make_float2(0.0f, 0.0f), zv2 = zd2;
+    float g_bg = 0.0f, g_depth = 0.0f;
+    if (ry.live) {
+      zd2 = *reinterpret_cast<const float2*>(zd + p0 + p);
+      zv2 = *reinterpret_cast<const float2*>(zv + p0 + p);
+      g_bg = gbg[ray];
+      g_depth = gdep[ray];
     }
-    const float g_bg = gbg[ray], g_depth = gdep[ray];
-    float suffix = 0.0f;  // sum over later samples of d_w * w
-    for (int p = M - 1; p >= 0; --p) {
-      const float d_w = dw[p] + zvr[p] * g_depth - g_bg;
-      const float d_alpha = d_w * trans[p] - suffix / tv[p];
-      suffix += d_w * wts[p];
-      const float one_m_a = 1.0f - alpha[p];
-      const float d_sigma = d_alpha * zdr[p] * one_m_a * (sig_pre[p] > 0.0f ? 1.0f : 0.0f);
-      const bf16 h = __float2bfloat16(d_sigma);
-      dsig[p] = __bfloat162float(h);
-      st.dsig[p0 + p] = h;
+    const float zdv[2] = {zd2.x, zd2.y}, zvv[2] = {zv2.x, zv2.y};
+    float sp[2], a[2], tt[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      sp[k] = ry.sig_pre[p + k];
+      a[k] = 1.0f - expf(-fmaxf(sp[k], 0.0f) * zdv[k]);
+      tt[k] = 1.0f - a[k] + 1e-10f;
+    }
+    // T[p] = prod_{q < p} t[q]: an inclusive product scan over the lanes of
+    // t[p] t[p + 1], shifted by one lane
+    float incl = tt[0] * tt[1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl = v * incl;
+    }
+    float excl = __shfl_up_sync(FULL, incl, 1);
+    if (lane == 0) excl = 1.0f;
+    const float T[2] = {excl, excl * tt[0]};
+    float w[2], d_w[2], c[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      w[k] = a[k] * T[k];
+      ry.wts[p + k] = w[k];
+      d_w[k] = ry.dw[p + k] + zvv[k] * g_depth - g_bg;
+      c[k] = d_w[k] * w[k];
+    }
+    // suffix[p] = sum_{q > p} d_w[q] w[q]: an inclusive suffix sum over the
+    // lanes of c[p] + c[p + 1], shifted by one lane
+    float sfx = c[0] + c[1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_down_sync(FULL, sfx, o);
+      if (lane + o < 32) sfx = sfx + v;
+    }
+    float after = __shfl_down_sync(FULL, sfx, 1);
+    if (lane == 31) after = 0.0f;
+    const float suffix[2] = {after + c[1], after};
+    float ds[2], dzdv[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float d_alpha = d_w[k] * T[k] - suffix[k] / tt[k];
+      const float one_m_a = 1.0f - a[k];
+      ds[k] = d_alpha * zdv[k] * one_m_a * (sp[k] > 0.0f ? 1.0f : 0.0f);
+      dzdv[k] = d_alpha * fmaxf(sp[k], 0.0f) * one_m_a;
+    }
+    const __nv_bfloat162 h = __floats2bfloat162_rn(ds[0], ds[1]);
+    ry.dsig[p] = __low2float(h);
+    ry.dsig[p + 1] = __high2float(h);
+    if (ry.live) {
+      __stcs(reinterpret_cast<unsigned int*>(st.dsig + p0 + p),
+             *reinterpret_cast<const unsigned int*>(&h));
       if (dzd != nullptr) {
-        dzd[p0 + p] = d_alpha * fmaxf(sig_pre[p], 0.0f) * one_m_a;
-        dzv[p0 + p] = wts[p] * g_depth;
+        *reinterpret_cast<float2*>(dzd + p0 + p) = make_float2(dzdv[0], dzdv[1]);
+        *reinterpret_cast<float2*>(dzv + p0 + p) = make_float2(w[0] * g_depth, w[1] * g_depth);
       }
     }
   }
   __syncthreads();
 
-  // d_rgb = w[p] * g_feat[c], bf16
-  for (int i = tid; i < M * FEAT; i += NTHREADS) {
-    const int p = i / FEAT, c = i - p * FEAT;
-    const bf16 h = __float2bfloat16(wts[p] * gf[c]);
-    xa[p * LDA + c] = h;
-    st.drgb[(p0 + p) * FEAT + c] = h;
+  // d_rgb = w[p] * g_feat[c], bf16, 8 values a thread, over r1 (already in the stash)
+  for (int i = t; i < M * FEAT / 8; i += 128) {
+    const int p = i / (FEAT / 8), c = (i - p * (FEAT / 8)) * 8;
+    const float wp = ry.wts[p];
+    float f[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] = wp * ry.gf[c + k];
+    const uint4 h = pack8(f);
+    *reinterpret_cast<uint4*>(act + cidx(p, c, FEAT)) = h;
+    if (ry.live) __stcs(reinterpret_cast<uint4*>(st.drgb + (p0 + p) * FEAT + c), h);
   }
 
   // ---- gradient chain through the MLP: g = mask(g_next @ W^T)
-  layer<H2, MASK_BF16, true>(xa, LDA, FEAT, wr2, nullptr, 0, 0, nullptr, nullptr, wbuf, scratch,
-                             to(xb, st.dr1 + p0 * H2, st.r1 + p0 * H2));       // d_r1
-  layer<H, LINEAR_BF16, true>(xb, LDA, H2, wr1, nullptr, 0, 0, nullptr, nullptr, wbuf, scratch,
-                              to(xa, st.dr0 + p0 * H));                        // d_r0
+  const Chunk0 after_g5 = dpe != nullptr ? nx(w5p, PE, H, true) : nx(w5x, H, H, true);
+  layer<H2, MASK_BF16, true>(ry, act, FEAT, FEAT, wr2, nullptr, 0, 0, nullptr, nullptr, wbuf,
+                             masks(nullptr, mr1), Drain(), true, nx(wr1, H, H2, true));  // d_r1
+  layer<H, LINEAR_BF16, true>(ry, act, H2, H2, wr1, nullptr, 0, 0, nullptr, nullptr, wbuf, plain,
+                              dr(st.dr1 + p0 * H2, H2), true, nx(wr0, H, H, true));      // d_r0
   {
-    EpiArgs e = to(xb, st.g[7] + p0 * H, X[7] + p0 * H);
-    e.rowv = dsig;
+    EpiArgs e = masks(nullptr, mx + 7 * MASK_X);
+    e.rowv = ry.dsig;
     e.colv = wd;
-    layer<H, MASK_BF16, true>(xa, LDA, H, wr0, nullptr, 0, 0, nullptr, nullptr, wbuf, scratch,
-                              e);                                              // g7
+    layer<H, MASK_BF16, true>(ry, act, H, H, wr0, nullptr, 0, 0, nullptr, nullptr, wbuf, e,
+                              dr(st.dr0 + p0 * H, H), true, nx(wh + 5 * HH, H, H, true));  // g7
   }
-  layer<H, MASK_BF16, true>(xb, LDA, H, wh + 5 * HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
-                            scratch, to(xa, st.g[6] + p0 * H, X[6] + p0 * H));  // g6
-  layer<H, MASK_BF16, true>(xa, LDA, H, wh + 4 * HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
-                            scratch, to(xb, st.g[5] + p0 * H, X[5] + p0 * H));  // g5
+  layer<H, MASK_BF16, true>(ry, act, H, H, wh + 5 * HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
+                            masks(nullptr, mx + 6 * MASK_X), dr(st.g[7] + p0 * H, H), true,
+                            nx(wh + 4 * HH, H, H, true));                              // g6
+  layer<H, MASK_BF16, true>(ry, act, H, H, wh + 4 * HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
+                            masks(nullptr, mx + 5 * MASK_X), dr(st.g[6] + p0 * H, H), true,
+                            after_g5);                                                 // g5
   if (dpe != nullptr) {
     EpiArgs e;
     e.f32 = dpe + p0 * PE;
-    layer<PE, F32_STORE, true>(xb, LDA, H, w5p, nullptr, 0, 0, nullptr, nullptr, wbuf, scratch,
-                               e);                                             // g5 w5p^T
+    layer<PE, F32_STORE, true>(ry, act, H, H, w5p, nullptr, 0, 0, nullptr, nullptr, wbuf, e,
+                               Drain(), true, nx(w5x, H, H, true));                    // g5 w5p^T
   }
-  layer<H, MASK_BF16, true>(xb, LDA, H, w5x, nullptr, 0, 0, nullptr, nullptr, wbuf, scratch,
-                            to(xa, st.g[4] + p0 * H, X[4] + p0 * H));           // g4
-  layer<H, MASK_BF16, true>(xa, LDA, H, wh + 3 * HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
-                            scratch, to(xb, st.g[3] + p0 * H, X[3] + p0 * H));  // g3
-  layer<H, MASK_BF16, true>(xb, LDA, H, wh + 2 * HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
-                            scratch, to(xa, st.g[2] + p0 * H, X[2] + p0 * H));  // g2
-  layer<H, MASK_BF16, true>(xa, LDA, H, wh + HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
-                            scratch, to(xb, st.g[1] + p0 * H, X[1] + p0 * H));  // g1
-  layer<H, MASK_BF16, true>(xb, LDA, H, wh, nullptr, 0, 0, nullptr, nullptr, wbuf, scratch,
-                            to(xa, st.g[0] + p0 * H, X[0] + p0 * H));           // g0
+  layer<H, MASK_BF16, true>(ry, act, H, H, w5x, nullptr, 0, 0, nullptr, nullptr, wbuf,
+                            masks(nullptr, mx + 4 * MASK_X), dr(st.g[5] + p0 * H, H), true,
+                            nx(wh + 3 * HH, H, H, true));                              // g4
+  layer<H, MASK_BF16, true>(ry, act, H, H, wh + 3 * HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
+                            masks(nullptr, mx + 3 * MASK_X), dr(st.g[4] + p0 * H, H), true,
+                            nx(wh + 2 * HH, H, H, true));                              // g3
+  layer<H, MASK_BF16, true>(ry, act, H, H, wh + 2 * HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
+                            masks(nullptr, mx + 2 * MASK_X), dr(st.g[3] + p0 * H, H), true,
+                            nx(wh + HH, H, H, true));                                  // g2
+  layer<H, MASK_BF16, true>(ry, act, H, H, wh + HH, nullptr, 0, 0, nullptr, nullptr, wbuf,
+                            masks(nullptr, mx + MASK_X), dr(st.g[2] + p0 * H, H), true,
+                            nx(wh, H, H, true));                                       // g1
+  layer<H, MASK_BF16, true>(ry, act, H, H, wh, nullptr, 0, 0, nullptr, nullptr, wbuf,
+                            masks(nullptr, mx), dr(st.g[1] + p0 * H, H), true,
+                            dpe != nullptr ? nx(w0p, PE, H, true) : Chunk0());         // g0
   if (dpe != nullptr) {
     EpiArgs e;
     e.f32 = dpe + p0 * PE;
-    layer<PE, F32_ADD, true>(xa, LDA, H, w0p, nullptr, 0, 0, nullptr, nullptr, wbuf, scratch,
-                             e);                                               // + g0 w0p^T
+    layer<PE, F32_ADD, true>(ry, act, H, H, w0p, nullptr, 0, 0, nullptr, nullptr, wbuf, e,
+                             Drain(), true, Chunk0());                                 // + g0 w0p^T
   }
+  __syncthreads();   // g0 complete: the last stash rows
+  drain_items(dr(st.g[0] + p0 * H, H), t, 0, M * H / 8);
 }
 
-// ---- weight gradients: dW = X^T G over one split of the point axis
-
-// rays per reduction split (at most): 4,096 points, so that the column sums
-// (one thread per column walks its split) have blocks enough to fill the card
-constexpr int SPLIT_RAYS = 64;
-constexpr int XT = 64;      // output tile edge
-constexpr int XK = 32;      // points per staged chunk
-constexpr int XLD = XT + PAD;
-constexpr int MAX_XJOBS = 12;
-
-struct XJob {
-  const bf16* x;  // [N, in]
-  const bf16* g;  // [N, out]
-  int in, out;
-  int part;       // offset of dW [in, out] within a split's partials
-};
-struct XJobs {
-  XJob job[MAX_XJOBS];
-  int tile_start[MAX_XJOBS + 1];
-  int n;
-};
-
-__global__ void __launch_bounds__(128) xtg_kernel(XJobs jobs, float* __restrict__ partial,
-                                                  size_t split_stride, int chunk) {
-  constexpr int BUF = 2 * XK * XLD * (int)sizeof(bf16);
-  __shared__ __align__(128) unsigned char raw[2 * BUF];
-  bf16(*xs)[XK][XLD] = reinterpret_cast<bf16(*)[XK][XLD]>(raw);        // [2][XK][XLD]
-  bf16(*gs)[XK][XLD] = reinterpret_cast<bf16(*)[XK][XLD]>(raw + BUF);  // [2][XK][XLD]
-  int j = 0;
-  while (j + 1 < jobs.n && (int)blockIdx.x >= jobs.tile_start[j + 1]) ++j;
-  const XJob jb = jobs.job[j];
-  const int t = blockIdx.x - jobs.tile_start[j];
-  const int tiles_n = jb.out / XT;
-  const int m0 = (t / tiles_n) * XT, n0 = (t % tiles_n) * XT;
-  const size_t pbeg = (size_t)blockIdx.y * chunk;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int k = 0; k < 2; ++k) wmma::fill_fragment(acc[i][k], 0.0f);
-
-  auto stage = [&](int c) {
-    const size_t p = pbeg + (size_t)c * XK;
-    for (int i = threadIdx.x; i < XK * (XT / 8); i += 128) {
-      const int r = i / (XT / 8), q = i - r * (XT / 8);
-      cp_async16(&xs[c & 1][r][q * 8], jb.x + (p + r) * jb.in + m0 + q * 8);
-      cp_async16(&gs[c & 1][r][q * 8], jb.g + (p + r) * jb.out + n0 + q * 8);
-    }
-    cp_async_commit();
-  };
-
-  const int n = chunk / XK;
-  stage(0);
-  for (int c = 0; c < n; ++c) {
-    if (c + 1 < n) {
-      stage(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < XK; kk += 16) {
-      // A = X^T: element (m, k) is xs[k][m], a col_major fragment
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &xs[c & 1][kk][wm + i * 16], XLD);
-#pragma unroll
-      for (int k = 0; k < 2; ++k) wmma::load_matrix_sync(fb[k], &gs[c & 1][kk][wn + k * 16], XLD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int k = 0; k < 2; ++k) wmma::mma_sync(acc[i][k], fa[i], fb[k], acc[i][k]);
-    }
-    __syncthreads();
-  }
-  float* out = partial + blockIdx.y * split_stride + jb.part;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-      wmma::store_matrix_sync(out + (size_t)(m0 + wm + i * 16) * jb.out + n0 + wn + k * 16,
-                              acc[i][k], jb.out, wmma::mem_row_major);
-}
-
-// ---- bias gradients (and dwd, dbd): column sums over one split
-
-constexpr int MAX_CJOBS = 13;
-
-struct CJob {
-  const bf16* src;  // [N, width]
-  const bf16* wt;   // [N] per-point factor, or null
-  int width;
-  int part;         // offset within a split's partials
-  int col_start;    // first global column of this job
-};
-struct CJobs {
-  CJob job[MAX_CJOBS];
-  int n, cols;
-};
-
-__global__ void __launch_bounds__(128) colsum_kernel(CJobs jobs, float* __restrict__ partial,
-                                                     size_t split_stride, int chunk) {
-  const int col = blockIdx.x * 128 + threadIdx.x;
-  if (col >= jobs.cols) return;
-  int j = 0;
-  while (j + 1 < jobs.n && col >= jobs.job[j + 1].col_start) ++j;
-  const CJob jb = jobs.job[j];
-  const int c = col - jb.col_start;
-  const size_t pbeg = (size_t)blockIdx.y * chunk;
-  const bf16* s = jb.src + pbeg * jb.width + c;
-  float acc = 0.0f;
-  if (jb.wt != nullptr) {
-    const bf16* w = jb.wt + pbeg;
-#pragma unroll 8
-    for (int p = 0; p < chunk; ++p)
-      acc += __bfloat162float(s[(size_t)p * jb.width]) * __bfloat162float(w[p]);
-  } else {
-#pragma unroll 8
-    for (int p = 0; p < chunk; ++p) acc += __bfloat162float(s[(size_t)p * jb.width]);
-  }
-  partial[blockIdx.y * split_stride + jb.part + c] = acc;
-}
-
-// ---- the splits' partials added in split order
-
-constexpr int MAX_RJOBS = MAX_XJOBS + MAX_CJOBS;
-
-struct RJob {
-  float* out;
-  int part, count, per_batch;
-  int start;  // first global output index of this job
-};
-struct RJobs {
-  RJob job[MAX_RJOBS];
-  int n, total;
-};
-
-__global__ void __launch_bounds__(256) reduce_kernel(RJobs jobs, const float* __restrict__ partial,
-                                                     size_t split_stride, int splits,
-                                                     int splits_per_batch) {
-  const int idx = blockIdx.x * 256 + threadIdx.x;
-  if (idx >= jobs.total) return;
-  int j = 0;
-  while (j + 1 < jobs.n && idx >= jobs.job[j + 1].start) ++j;
-  const RJob jb = jobs.job[j];
-  const int local = idx - jb.start;
-  int s0 = 0, s1 = splits, i = local;
-  if (jb.per_batch) {
-    const int b = local / jb.count;
-    i = local - b * jb.count;
-    s0 = b * splits_per_batch;
-    s1 = s0 + splits_per_batch;
-  }
-  float acc = 0.0f;
-  for (int s = s0; s < s1; ++s) acc += partial[s * split_stride + jb.part + i];
-  jb.out[local] = acc;
-}
-
-int gcd(int a, int b) {
-  while (b) {
-    const int t = a % b;
-    a = b;
-    b = t;
-  }
-  return a;
+// the weight-gradient jobs of one launch over the stash, in the order of
+// the partials; b0 / b5 / br1 summed per batch row
+xtg::Plan weight_plan(const Stash& st, float* dw0p, float* dwh, float* dw5p, float* dw5x,
+                      float* dwd, float* dwr0, float* dwr1, float* dwr2, float* db0, float* dbh,
+                      float* db5, float* dbd, float* dbr0, float* dbr1, float* dbr2, int B) {
+  xtg::Plan plan;
+  plan.add(st.pe, st.g[0], PE, H, dw0p, 0, db0, 1, B);
+  for (int l = 0; l < 4; ++l)   // fea_1 .. fea_4
+    plan.add(st.x[l], st.g[l + 1], H, H, dwh + l * HH, 0, dbh + l * H, 0, B);
+  plan.add(st.x[5], st.g[6], H, H, dwh + 4 * HH, 0, dbh + 4 * H, 0, B);   // fea_6
+  plan.add(st.x[6], st.g[7], H, H, dwh + 5 * HH, 0, dbh + 5 * H, 0, B);   // fea_7
+  plan.add(st.pe, st.g[5], PE, H, dw5p, 0, db5, 1, B);
+  plan.add(st.x[4], st.g[5], H, H, dw5x, 0, nullptr, 0, B);
+  plan.add(st.x[7], st.dr0, H, H, dwr0, 0, dbr0, 0, B);
+  plan.add(st.r0, st.dr1, H, H2, dwr1, 0, dbr1, 1, B);
+  plan.add(st.r1, st.drgb, H2, FEAT, dwr2, 0, dbr2, 0, B);
+  plan.add(st.x[7], st.dsig, H, 1, dwd, 0, dbd, 0, B);                    // narrow
+  return plan;
 }
 
 }  // namespace
 
-// Launches the four kernels above on `stream`, which belongs to the current
+// Launches the kernels above on `stream`, which belongs to the current
 // device, using `scratch` (`scratch_size` bytes, allocated by the caller)
 // for the stash and the partial sums. Every output is overwritten.
 // dpe / dzd / dzv are written when input_grads is nonzero and may be null
@@ -661,10 +766,6 @@ extern "C" int fused_render_bwd_launch(
   if (input_grads && (dpe == nullptr || dzd == nullptr || dzv == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t N = (size_t)rays * M;
-  const int rays_per_split = gcd(R, SPLIT_RAYS);
-  const int chunk = rays_per_split * M;
-  const int splits = (int)(rays / rays_per_split);
-  const int splits_per_batch = R / rays_per_split;
 
   // stash layout
   bf16* base = static_cast<bf16*>(scratch);
@@ -686,82 +787,43 @@ extern "C" int fused_render_bwd_launch(
   st.dsig = take(1);
   float* partial = reinterpret_cast<float*>(base + off);
 
-  // jobs: weight gradients first, then the column sums
-  XJobs xj{};
-  RJobs rj{};
-  int part = 0;
-  auto xjob = [&](const bf16* x, const bf16* g, int in, int out, float* dst) {
-    XJob& jb = xj.job[xj.n];
-    jb.x = x;
-    jb.g = g;
-    jb.in = in;
-    jb.out = out;
-    jb.part = part;
-    xj.tile_start[xj.n + 1] = xj.tile_start[xj.n] + (in / XT) * (out / XT);
-    ++xj.n;
-    rj.job[rj.n] = RJob{dst, part, in * out, 0, rj.total};
-    rj.total += in * out;
-    ++rj.n;
-    part += in * out;
-  };
-  xjob(st.pe, st.g[0], PE, H, dw0p);
-  for (int l = 0; l < 4; ++l) xjob(st.x[l], st.g[l + 1], H, H, dwh + l * HH);  // fea_1..4
-  xjob(st.x[5], st.g[6], H, H, dwh + 4 * HH);                                  // fea_6
-  xjob(st.x[6], st.g[7], H, H, dwh + 5 * HH);                                  // fea_7
-  xjob(st.pe, st.g[5], PE, H, dw5p);
-  xjob(st.x[4], st.g[5], H, H, dw5x);
-  xjob(st.x[7], st.dr0, H, H, dwr0);
-  xjob(st.r0, st.dr1, H, H2, dwr1);
-  xjob(st.r1, st.drgb, H2, FEAT, dwr2);
+  const xtg::Plan plan = weight_plan(st, dw0p, dwh, dw5p, dw5x, dwd, dwr0, dwr1, dwr2, db0, dbh,
+                                     db5, dbd, dbr0, dbr1, dbr2, B);
+  const int splits_b = xtg::splits_per_batch(plan.tiles(), B, R);
+  const size_t need = off * sizeof(bf16) + plan.partial_bytes(B * splits_b);
+  if (!plan.ok || scratch_size < 0 || (size_t)scratch_size < need)
+    return (int)cudaErrorInvalidValue;
 
-  CJobs cj{};
-  auto cjob = [&](const bf16* src, const bf16* wt, int width, float* dst, int per_batch) {
-    cj.job[cj.n] = CJob{src, wt, width, part, cj.cols};
-    ++cj.n;
-    cj.cols += width;
-    rj.job[rj.n] = RJob{dst, part, width, per_batch, rj.total};
-    rj.total += per_batch ? B * width : width;
-    ++rj.n;
-    part += width;
-  };
-  cjob(st.x[7], st.dsig, H, dwd, 0);
-  cjob(st.dsig, nullptr, 1, dbd, 0);
-  cjob(st.g[0], nullptr, H, db0, 1);
-  for (int l = 0; l < 4; ++l) cjob(st.g[l + 1], nullptr, H, dbh + l * H, 0);
-  cjob(st.g[5], nullptr, H, db5, 1);
-  cjob(st.g[6], nullptr, H, dbh + 4 * H, 0);
-  cjob(st.g[7], nullptr, H, dbh + 5 * H, 0);
-  cjob(st.dr0, nullptr, H, dbr0, 0);
-  cjob(st.dr1, nullptr, H2, dbr1, 1);
-  cjob(st.drgb, nullptr, FEAT, dbr2, 0);
-
-  const size_t split_stride = ((size_t)part + 63) / 64 * 64;
-  const size_t need = off * sizeof(bf16) + (size_t)splits * split_stride * sizeof(float);
-  if (scratch_size < 0 || (size_t)scratch_size < need) return (int)cudaErrorInvalidValue;
-
-  constexpr int kMaxDevices = 64;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static std::atomic<bool> smem_set[xtg::MAX_DEVICES];
+  cudaError_t err = xtg::allow_smem(ray_kernel, SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[dev].load()) {
-    err = cudaFuncSetAttribute(ray_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev].store(true);
-  }
   cudaStream_t s = (cudaStream_t)stream;
-  ray_kernel<<<(unsigned)rays, NTHREADS, SMEM, s>>>(
+  ray_kernel<<<(unsigned)((rays + RAYS - 1) / RAYS), NTHREADS, SMEM, s>>>(
       pe, zd, zv, gfeat, gbg, gdep, w0p, wh, w5p, w5x, wd, wr0, wr1, wr2, b0, bh, b5, bd, br0,
       br1, br2, input_grads ? dpe : nullptr, input_grads ? dzd : nullptr,
-      input_grads ? dzv : nullptr, st, R);
+      input_grads ? dzv : nullptr, st, R, (int)rays);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  xtg_kernel<<<dim3(xj.tile_start[xj.n], splits), 128, 0, s>>>(xj, partial, split_stride, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  colsum_kernel<<<dim3((cj.cols + 127) / 128, splits), 128, 0, s>>>(cj, partial, split_stride,
-                                                                      chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  reduce_kernel<<<(rj.total + 255) / 256, 256, 0, s>>>(rj, partial, split_stride, splits,
-                                                       splits_per_batch);
-  return (int)cudaGetLastError();
+  return (int)plan.launch(partial, B, R, splits_b, s);
+}
+
+// The X^T G core alone, for its tests: job j is dw[j] = x[j]^T g[j] (x [P,
+// in], g [P, out] bf16; out == 1: g [P]) and, unless db[j] is null, db[j] =
+// the column sums of g[j]; dims[4 j .. 4 j + 3] = in, out, per_batch of dw,
+// per_batch of db. The point axis is B batch rows of rows_per_batch rows
+// of 64 points. `scratch` holds the partials. Returns the cudaError_t.
+extern "C" int xtg_core_launch(const void* const* x, const void* const* g, const int* dims,
+                               float* const* dw, float* const* db, int njobs, int B,
+                               int rows_per_batch, void* scratch, long long scratch_size,
+                               void* stream) {
+  if (njobs <= 0 || njobs > xtg::MAX_JOBS || B <= 0 || rows_per_batch <= 0)
+    return (int)cudaErrorInvalidValue;
+  xtg::Plan plan;
+  for (int j = 0; j < njobs; ++j)
+    plan.add(static_cast<const bf16*>(x[j]), static_cast<const bf16*>(g[j]), dims[4 * j],
+             dims[4 * j + 1], dw[j], dims[4 * j + 2], db[j], dims[4 * j + 3], B);
+  const int splits_b = xtg::splits_per_batch(plan.tiles(), B, rows_per_batch);
+  if (!plan.ok || scratch_size < 0 || (size_t)scratch_size < plan.partial_bytes(B * splits_b))
+    return (int)cudaErrorInvalidValue;
+  return (int)plan.launch(static_cast<float*>(scratch), B, rows_per_batch, splits_b,
+                          (cudaStream_t)stream);
 }

@@ -7,257 +7,296 @@
 // are (a) read from the inputs, (b) computed in the kernel, (c) staged
 // through on-chip scratch, or (d) widened to f32. The product is the one
 // the fused render backward forms for every weight gradient
-// (csrc/fused_render_bwd.cu, xtg_kernel). Inputs x [N, K], g [N, H],
-// w [K, H], all bf16, row-major; N, K and H multiples of 64.
+// (csrc/fused_render_bwd.cu), and both run on the same staged core
+// (xtg_core.cuh). Inputs x [N, K], g [N, H], w [K, H], all bf16,
+// row-major; N, K and H multiples of 64, N at least 64 * SPLITS, K at most
+// KMAX for the modes that form x'.
 //
-//   mode 0 loaded    out [K, H] = x^T g
-//   mode 1 computed  out [H, H] = x'^T g with x' = bf16(relu(x w)); x' never
-//                    leaves the registers: the f32 accumulator fragments of
-//                    x'^T = relu(w^T x^T) become, rounded to bf16, the A
-//                    fragments of the second product
-//   mode 2 scratch   the same, with x' and g staged through shared memory
-//   mode 3 f32       the same x' (bf16, from the scratch path), and the
-//                    product x'^T g in f32 on the CUDA cores
+//   mode 0 loaded    out [K, H] = x^T g: the core's ring of cp.async stages
+//                    of x and g, ldmatrix.trans into mma.sync
+//   mode 1 computed  out [H, H] = x'^T g with x' = bf16(relu(x w)): each
+//                    block forms the x' tile of each 64-point stage once
+//                    (mma.sync from x rows and the block's w columns, both
+//                    staged in shared memory) into the stage's X slot, and
+//                    the core's warps read it as they read a loaded X tile
+//   mode 2 scratch   the same, with the f32 product x w written to an
+//                    explicit f32 shared scratch tile first and rounded to
+//                    bf16 in a second pass
+//   mode 3 f32       the x' of mode 2, and the product x'^T g in f32 on the
+//                    CUDA cores from the same staged tiles
 //
 // Bound at the probe's shapes (N = 1024, K = H = 384): about 2.5 MB of
 // operands and output against 0.30 GFLOP per product (0.60 with x w), so the
-// bytes set the floor (~0.7 us at 3.35 TB/s) and one launch is shorter than
-// a launch's own overhead.
+// bytes set the floor (~0.7 us at 3.35 TB/s), below a launch's own cost.
+// What held the first version back: every fragment was loaded element by
+// element from global memory, one block of 4 warps per 64 x 64 tile gave
+// 36 blocks, and in `computed` every warp recomputed its own x'. Here the
+// operands are staged (16-byte cp.async, ldmatrix), and the point axis is
+// split: at N = 1024 the 128 x 128 tiles give only 9 blocks for 132 SMs, so
+// each tile's 16 stages of 64 points are cut into SPLITS = 8 splits of two
+// stages (72 blocks), and the 8 splits of a tile are one thread block
+// cluster: each rank writes its partial tile to its own shared memory, and
+// after a cluster barrier each rank adds 16 rows of the 8 tiles, read
+// across the cluster in 16-byte loads, in rank order (deterministic, no
+// partials in device memory, one launch). Eight is the largest portable
+// cluster; 16 (non-portable) measured 15.9 us a call and 4 measured 10.2,
+// against 8.1 for 8; pushing each partial into its owner's shared memory
+// instead of reading it back measured 9.7 (the card below).
+// What bounds it: fixed costs, not its 0.6 us of bytes. Timed from a CUDA
+// graph on the H100 80GB HBM3 at 700 W, an empty launch of the same grid
+// takes 1.4 us, and the sum over the splits most of the rest (without it
+// 4.7 us; cuBLAS computes the same product in 4.2-4.6 us there).
 //
-// Design: simple and right. Every product is mma.sync m16n8k16 (bf16 x bf16
-// -> f32) with fragments loaded element by element from global memory (the
-// 2.5 MB stay in L2) or from shared memory; one block of 4 warps per 64 x 64
-// output tile, each warp a 32 x 32 quarter. The computed modes recompute x'
-// in every block that needs its columns. No cp.async, ldmatrix, wgmma or
-// TMA: the probe measures where the operands come from, not how fast the
-// loads can be made.
+// Waits: cp.async.wait_group and the cluster barrier, both hardware waits
+// that complete when the copies land and every block of the cluster
+// arrives (the blocks of a cluster are resident together); no mbarrier or
+// TMA handshake that could spin.
 
+#include <atomic>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "xtg_core.cuh"
+
+namespace cg = cooperative_groups;
+typedef __nv_bfloat16 bf16;
+
 namespace {
 
-constexpr int TILE = 64;       // output tile per block
-constexpr int NTHREADS = 128;  // 4 warps, each a 32 x 32 quarter
-constexpr int CHUNK = 64;      // rows of N staged per step (scratch, f32)
-constexpr int LDS = TILE + 8;  // shared row stride in bf16
+using namespace xtg;
 
-__device__ __forceinline__ float bf2f(uint16_t v) {
-  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+constexpr int SPLITS = 8;      // cluster size along the split axis
+constexpr int KMAX = 384;      // contraction of x w in the forming modes
+constexpr int LDX = KMAX + 8;  // staged row of x
+constexpr int LDO = BN + 4;    // f32 tile row
+constexpr int TILE_F32_BYTES = BM * LDO * 4;   // 67,584
+
+// forming modes' shared memory: w columns [KMAX][LDS], x rows [BK][LDX]
+// (aliased by the f32 scratch [BK][LDO] of mode 2), the g tile and the x'
+// tile [BK][LDS]
+constexpr int OFF_W = 0;
+constexpr int OFF_X = OFF_W + KMAX * LDS * 2;   // 104,448
+constexpr int OFF_G = OFF_X + BK * LDX * 2;     // 154,624
+constexpr int OFF_XP = OFF_G + TILE * 2;        // 172,032
+constexpr int SMEM_FORMED = OFF_XP + TILE * 2;  // 189,440
+constexpr int SMEM_LOADED = RING_BYTES;         // 104,448
+static_assert(BK * LDO * 4 <= BK * LDX * 2, "the f32 scratch fits in the x rows");
+static_assert(TILE_F32_BYTES <= SMEM_LOADED && TILE_F32_BYTES <= SMEM_FORMED,
+              "the partial tile fits in the block's shared memory");
+static_assert(BM % SPLITS == 0, "each rank of the cluster adds whole rows");
+
+// The cluster's partial tiles (each block's in its own shared memory, f32
+// [BM][LDO] at `tile`) added in rank order; rank r writes rows r * BM /
+// SPLITS .. of out [.., ld] at (m0, n0), inside mvalid x nvalid.
+__device__ __forceinline__ void cluster_sum(float* tile, float* __restrict__ out, int ld, int m0,
+                                            int n0, int mvalid, int nvalid) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();   // every block's partial tile is written
+  constexpr int ROWS = BM / SPLITS;
+  const int rank = (int)cluster.block_rank();
+  for (int i = threadIdx.x; i < ROWS * BN / 4; i += NTHREADS) {
+    const int r = rank * ROWS + i / (BN / 4), c = (i % (BN / 4)) * 4;
+    if (r < mvalid && c < nvalid) {
+      float4 v[SPLITS];   // every rank's four values in flight at once
+#pragma unroll
+      for (int q = 0; q < SPLITS; ++q)
+        v[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(tile, q) + r * LDO + c);
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int q = 0; q < SPLITS; ++q) {
+        s.x += v[q].x;
+        s.y += v[q].y;
+        s.z += v[q].z;
+        s.w += v[q].w;
+      }
+      *reinterpret_cast<float4*>(out + (size_t)(m0 + r) * ld + n0 + c) = s;
+    }
+  }
+  cluster.sync();   // no block leaves while another reads its tile
 }
 
-__device__ __forceinline__ uint16_t f2bf(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// d += a b for one m16n8k16 tile (A row-major 16x16, B column-major 16x8)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragment loaders. A(r, c) and B(r, c) are read through element functors;
-// lane = 4 * grp + tig. A holds rows grp and grp + 8, columns 2 tig (+1) and
-// 2 tig + 8 (+1); B holds rows 2 tig (+1) and 2 tig + 8 (+1) of column grp.
-template <typename F>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], F at, int grp, int tig) {
-  const int c = 2 * tig;
-  a[0] = pack(at(grp, c), at(grp, c + 1));
-  a[1] = pack(at(grp + 8, c), at(grp + 8, c + 1));
-  a[2] = pack(at(grp, c + 8), at(grp, c + 9));
-  a[3] = pack(at(grp + 8, c + 8), at(grp + 8, c + 9));
-}
-
-template <typename F>
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], F at, int grp, int tig) {
-  const int r = 2 * tig;
-  b[0] = pack(at(r, grp), at(r + 1, grp));
-  b[1] = pack(at(r + 8, grp), at(r + 9, grp));
-}
-
-// the warp's 32 x 32 accumulator to out [rows, ld] at (row0, col0)
-__device__ __forceinline__ void store_tile(float* out, int ld, int row0, int col0,
-                                           const float (&acc)[2][4][4], int grp, int tig) {
-  for (int mi = 0; mi < 2; ++mi)
+// the warp's accumulator into the f32 tile
+__device__ __forceinline__ void acc_to_tile(const Acc& acc, float* tile, int wm, int wn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
-      const int r = row0 + 16 * mi + grp, c = col0 + 8 * ni + 2 * tig;
-      out[(long long)r * ld + c] = acc[mi][ni][0];
-      out[(long long)r * ld + c + 1] = acc[mi][ni][1];
-      out[(long long)(r + 8) * ld + c] = acc[mi][ni][2];
-      out[(long long)(r + 8) * ld + c + 1] = acc[mi][ni][3];
+      const int r = wm + 16 * mi + g, c = wn + 8 * ni + 2 * t;
+      *reinterpret_cast<float2*>(tile + r * LDO + c) = make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(tile + (r + 8) * LDO + c) =
+          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
     }
 }
 
-// mode 0: out [K, H] = x^T g, operands straight from global memory
-__global__ void __launch_bounds__(NTHREADS)
-xtg_loaded(const uint16_t* __restrict__ x, const uint16_t* __restrict__ g,
+// mode 0: out [K, H] = x^T g
+__global__ void __cluster_dims__(1, SPLITS, 1) __launch_bounds__(NTHREADS, 1)
+xtg_loaded(const bf16* __restrict__ x, const bf16* __restrict__ g, float* __restrict__ out, int N,
+           int K, int H) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring_base = reinterpret_cast<bf16*>(smem);
+  const int tiles_n = (H + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int mvalid = min(BM, K - m0), nvalid = min(BN, H - n0);
+  long long first;
+  int count;
+  split_rows(blockIdx.y, N / BK, SPLITS, first, count);
+  const int wm = warp_m(), wn = warp_n();
+  const bool active = wm < mvalid && wn < nvalid;
+  Acc acc;
+  zero(acc);
+  ring(
+      count,
+      [&](int s, int slot) {
+        bf16* xs = ring_base + slot * 2 * TILE;
+        const size_t p = (size_t)(first + s) * BK;
+        stage_tile(xs, x, p, K, m0, mvalid);
+        stage_tile(xs + TILE, g, p, H, n0, nvalid);
+      },
+      [&](int slot) {
+        const bf16* xs = ring_base + slot * 2 * TILE;
+        if (active) mma_stage(acc, xs, xs + TILE, wm, wn);
+      });
+  float* tile = reinterpret_cast<float*>(smem);   // the ring is done with
+  if (active) acc_to_tile(acc, tile, wm, wn);
+  cluster_sum(tile, out, H, m0, n0, mvalid, nvalid);
+}
+
+// modes 1-3: out [H, H] = x'^T g with x' = bf16(relu(x w)), tile rows from
+// the x' columns m0 .., tile columns from the g columns n0 ..
+template <int MODE>
+__global__ void __cluster_dims__(1, SPLITS, 1) __launch_bounds__(NTHREADS, 1)
+xtg_formed(const bf16* __restrict__ x, const bf16* __restrict__ g, const bf16* __restrict__ w,
            float* __restrict__ out, int N, int K, int H) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int row0 = blockIdx.y * TILE + 32 * (warp >> 1);   // k
-  const int col0 = blockIdx.x * TILE + 32 * (warp & 1);    // h
-  float acc[2][4][4] = {};
-  for (int n0 = 0; n0 < N; n0 += 16) {
-    uint32_t a[2][4], b[4][2];
-    for (int mi = 0; mi < 2; ++mi)   // A(k, n) = x[n, k]
-      load_a(a[mi], [&](int r, int c) {
-        return x[(long long)(n0 + c) * K + row0 + 16 * mi + r];
-      }, grp, tig);
-    for (int ni = 0; ni < 4; ++ni)   // B(n, h) = g[n, h]
-      load_b(b[ni], [&](int r, int c) {
-        return g[(long long)(n0 + r) * H + col0 + 8 * ni + c];
-      }, grp, tig);
-    for (int mi = 0; mi < 2; ++mi)
-      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], a[mi], b[ni]);
-  }
-  store_tile(out, H, row0, col0, acc, grp, tig);
-}
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ws = reinterpret_cast<bf16*>(smem + OFF_W);
+  bf16* xc = reinterpret_cast<bf16*>(smem + OFF_X);
+  float* scr = reinterpret_cast<float*>(smem + OFF_X);   // mode 2: aliases xc
+  bf16* gt = reinterpret_cast<bf16*>(smem + OFF_G);
+  bf16* xp = reinterpret_cast<bf16*>(smem + OFF_XP);
+  const int tiles_n = (H + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int mvalid = min(BM, H - m0), nvalid = min(BN, H - n0);
+  long long first;
+  int count;
+  split_rows(blockIdx.y, N / BK, SPLITS, first, count);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int j8 = lane >> 3, i8 = lane & 7, gq = lane >> 2, tq = lane & 3;
+  const int wm = warp_m(), wn = warp_n();
+  const bool active = wm < mvalid && wn < nvalid;
+  // forming x': warp rows fr .. fr + 15 (points), columns fc .. fc + 63 (x' columns)
+  const int fr = (warp & 3) * 16, fc = (warp >> 2) * 64;
+  Acc acc;
+  zero(acc);
+  // mode 3: thread rows mi .. mi + 7 (x' columns), columns ni .. ni + 7 (g columns)
+  const int mi = (tid >> 4) * 8, ni = (tid & 15) * 8;
+  float facc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) facc[a][b] = 0.0f;
 
-// mode 1: out [H, H] = x'^T g; x'^T rows of this warp come from
-// relu(w^T x^T) and pass from accumulator to A fragment in registers
-__global__ void __launch_bounds__(NTHREADS)
-xtg_computed(const uint16_t* __restrict__ x, const uint16_t* __restrict__ g,
-             const uint16_t* __restrict__ w, float* __restrict__ out, int N, int K, int H) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int row0 = blockIdx.y * TILE + 32 * (warp >> 1);   // h1
-  const int col0 = blockIdx.x * TILE + 32 * (warp & 1);    // h2
-  float acc[2][4][4] = {};
-  for (int n0 = 0; n0 < N; n0 += 16) {
-    // x'^T [32 h1, 16 n] = w^T [h1, K] x^T [K, n]: 2 m-tiles x 2 n8-tiles
-    float xt[2][2][4] = {};
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t a[2][4], b[2][2];
-      for (int mi = 0; mi < 2; ++mi)   // A(h1, k) = w[k, h1]
-        load_a(a[mi], [&](int r, int c) {
-          return w[(long long)(k0 + c) * H + row0 + 16 * mi + r];
-        }, grp, tig);
-      for (int ni = 0; ni < 2; ++ni)   // B(k, n) = x[n, k]
-        load_b(b[ni], [&](int r, int c) {
-          return x[(long long)(n0 + 8 * ni + c) * K + k0 + r];
-        }, grp, tig);
-      for (int mi = 0; mi < 2; ++mi)
-        for (int ni = 0; ni < 2; ++ni) mma(xt[mi][ni], a[mi], b[ni]);
-    }
-    // accumulator (rows h1, columns n) -> A fragment (rows h1, depth n)
-    uint32_t a[2][4];
-    for (int mi = 0; mi < 2; ++mi) {
-      const float(&c0)[4] = xt[mi][0];
-      const float(&c1)[4] = xt[mi][1];
-      a[mi][0] = pack(f2bf(fmaxf(c0[0], 0.f)), f2bf(fmaxf(c0[1], 0.f)));
-      a[mi][1] = pack(f2bf(fmaxf(c0[2], 0.f)), f2bf(fmaxf(c0[3], 0.f)));
-      a[mi][2] = pack(f2bf(fmaxf(c1[0], 0.f)), f2bf(fmaxf(c1[1], 0.f)));
-      a[mi][3] = pack(f2bf(fmaxf(c1[2], 0.f)), f2bf(fmaxf(c1[3], 0.f)));
-    }
-    for (int ni = 0; ni < 4; ++ni) {   // B(n, h2) = g[n, h2]
-      uint32_t b[2];
-      load_b(b, [&](int r, int c) {
-        return g[(long long)(n0 + r) * H + col0 + 8 * ni + c];
-      }, grp, tig);
-      for (int mi = 0; mi < 2; ++mi) mma(acc[mi][ni], a[mi], b);
-    }
+  // w columns m0 .., every row, once
+  for (int i = tid; i < K * (BM / 8); i += NTHREADS) {
+    const int r = i / (BM / 8), q = i - r * (BM / 8);
+    if (q * 8 < mvalid) cp_async16(ws + r * LDS + q * 8, w + (size_t)r * H + m0 + q * 8);
   }
-  store_tile(out, H, row0, col0, acc, grp, tig);
-}
-
-// x' [CHUNK n, TILE h1] = bf16(relu(x[n0:, :] w[:, h1b:])) into shared xs;
-// warp w computes rows 16 w .. 16 w + 15
-__device__ __forceinline__ void stage_xprime(uint16_t* xs, const uint16_t* __restrict__ x,
-                                             const uint16_t* __restrict__ w, int n0,
-                                             int h1b, int K, int H, int warp, int grp,
-                                             int tig) {
-  float c[8][4] = {};
-  const int nb = n0 + 16 * warp;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    load_a(a, [&](int r, int cc) { return x[(long long)(nb + r) * K + k0 + cc]; }, grp, tig);
-    for (int ni = 0; ni < 8; ++ni) {
-      uint32_t b[2];
-      load_b(b, [&](int r, int cc) {
-        return w[(long long)(k0 + r) * H + h1b + 8 * ni + cc];
-      }, grp, tig);
-      mma(c[ni], a, b);
+  for (int s = 0; s < count; ++s) {
+    const size_t p = (size_t)(first + s) * BK;
+    for (int i = tid; i < BK * (K / 8); i += NTHREADS) {
+      const int r = i / (K / 8), q = i - r * (K / 8);
+      cp_async16(xc + r * LDX + q * 8, x + (p + r) * K + q * 8);
     }
-  }
-  for (int ni = 0; ni < 8; ++ni) {
-    const int r = 16 * warp + grp, col = 8 * ni + 2 * tig;
-    xs[r * LDS + col] = f2bf(fmaxf(c[ni][0], 0.f));
-    xs[r * LDS + col + 1] = f2bf(fmaxf(c[ni][1], 0.f));
-    xs[(r + 8) * LDS + col] = f2bf(fmaxf(c[ni][2], 0.f));
-    xs[(r + 8) * LDS + col + 1] = f2bf(fmaxf(c[ni][3], 0.f));
-  }
-}
-
-// g [CHUNK n, TILE h2] into shared gs, two values per thread and step
-__device__ __forceinline__ void stage_g(uint16_t* gs, const uint16_t* __restrict__ g, int n0,
-                                        int h2b, int H) {
-  for (int i = threadIdx.x; i < CHUNK * TILE / 2; i += NTHREADS) {
-    const int r = i / (TILE / 2), c = 2 * (i % (TILE / 2));
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(g + (long long)(n0 + r) * H + h2b + c);
-    *reinterpret_cast<uint32_t*>(gs + r * LDS + c) = v;
-  }
-}
-
-// modes 2 and 3: x' and g staged through shared memory per chunk of N;
-// the product on the tensor cores (mode 2) or in f32 on the CUDA cores
-template <bool F32>
-__global__ void __launch_bounds__(NTHREADS)
-xtg_staged(const uint16_t* __restrict__ x, const uint16_t* __restrict__ g,
-           const uint16_t* __restrict__ w, float* __restrict__ out, int N, int K, int H) {
-  __shared__ __align__(16) uint16_t xs[CHUNK * LDS];
-  __shared__ __align__(16) uint16_t gs[CHUNK * LDS];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int h1b = blockIdx.y * TILE, h2b = blockIdx.x * TILE;
-  const int r0 = 32 * (warp >> 1), c0 = 32 * (warp & 1);   // the warp's quarter
-  float acc[2][4][4] = {};
-  // f32 mode: thread t owns rows 4 (t / 8) .. +3 and columns 8 (t % 8) .. +7
-  const int fr = 4 * (threadIdx.x / 8), fc = 8 * (threadIdx.x % 8);
-  float facc[4][8] = {};
-  for (int n0 = 0; n0 < N; n0 += CHUNK) {
-    stage_xprime(xs, x, w, n0, h1b, K, H, warp, grp, tig);
-    stage_g(gs, g, n0, h2b, H);
+    stage_tile(gt, g, p, H, n0, nvalid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    if constexpr (F32) {
-      for (int n = 0; n < CHUNK; ++n) {
-        float xv[4], gv[8];
-        for (int i = 0; i < 4; ++i) xv[i] = bf2f(xs[n * LDS + fr + i]);
-        for (int j = 0; j < 8; ++j) gv[j] = bf2f(gs[n * LDS + fc + j]);
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(xv[i], gv[j], facc[i][j]);
+
+    // x' [BK points, BM columns] = x [BK, K] w [K, m0 ..]
+    float c[8][4];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) c[a][b] = 0.0f;
+    const bool forms = fc < mvalid;
+    if (forms) {
+      for (int k0 = 0; k0 < K; k0 += 16) {
+        uint32_t a[4];   // matrices (p, k0), (p+8, k0), (p, k0+8), (p+8, k0+8)
+        ldsm_x4(a, xc + (fr + i8 + ((j8 & 1) << 3)) * LDX + k0 + ((j8 >> 1) << 3));
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          uint32_t b[4];   // matrices (k0, n), (k0+8, n), (k0, n+8), (k0+8, n+8)
+          ldsm_x4_t(b, ws + (k0 + i8 + ((j8 & 1) << 3)) * LDS + fc + 16 * nj + ((j8 >> 1) << 3));
+          mma(c[2 * nj], a, b[0], b[1]);
+          mma(c[2 * nj + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    if constexpr (MODE == 1) {
+      if (forms) {
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8) {
+          const int col = fc + 8 * n8 + 2 * tq;
+          *reinterpret_cast<__nv_bfloat162*>(xp + (fr + gq) * LDS + col) =
+              __floats2bfloat162_rn(fmaxf(c[n8][0], 0.0f), fmaxf(c[n8][1], 0.0f));
+          *reinterpret_cast<__nv_bfloat162*>(xp + (fr + gq + 8) * LDS + col) =
+              __floats2bfloat162_rn(fmaxf(c[n8][2], 0.0f), fmaxf(c[n8][3], 0.0f));
+        }
       }
     } else {
-      for (int k0 = 0; k0 < CHUNK; k0 += 16) {
-        uint32_t a[2][4], b[4][2];
-        for (int mi = 0; mi < 2; ++mi)   // A(h1, n) = xs[n, h1]
-          load_a(a[mi], [&](int r, int c) { return xs[(k0 + c) * LDS + r0 + 16 * mi + r]; },
-                 grp, tig);
-        for (int ni = 0; ni < 4; ++ni)   // B(n, h2) = gs[n, h2]
-          load_b(b[ni], [&](int r, int c) { return gs[(k0 + r) * LDS + c0 + 8 * ni + c]; },
-                 grp, tig);
-        for (int mi = 0; mi < 2; ++mi)
-          for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], a[mi], b[ni]);
+      __syncthreads();   // every warp is done with the x rows that scr aliases
+      if (forms) {
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8) {
+          const int col = fc + 8 * n8 + 2 * tq;
+          *reinterpret_cast<float2*>(scr + (fr + gq) * LDO + col) = make_float2(c[n8][0], c[n8][1]);
+          *reinterpret_cast<float2*>(scr + (fr + gq + 8) * LDO + col) =
+              make_float2(c[n8][2], c[n8][3]);
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < BK * BM / 2; i += NTHREADS) {
+        const int r = i / (BM / 2), col = 2 * (i - r * (BM / 2));
+        const float2 v = *reinterpret_cast<const float2*>(scr + r * LDO + col);
+        *reinterpret_cast<__nv_bfloat162*>(xp + r * LDS + col) =
+            __floats2bfloat162_rn(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f));
       }
     }
-    __syncthreads();
+    __syncthreads();   // x' is complete
+
+    if constexpr (MODE == 3) {
+      for (int r = 0; r < BK; ++r) {
+        const uint4 xu = *reinterpret_cast<const uint4*>(xp + r * LDS + mi);
+        const uint4 gu = *reinterpret_cast<const uint4*>(gt + r * LDS + ni);
+        const bf16* xv = reinterpret_cast<const bf16*>(&xu);
+        const bf16* gv = reinterpret_cast<const bf16*>(&gu);
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int b = 0; b < 8; ++b)
+            facc[a][b] = fmaf(__bfloat162float(xv[a]), __bfloat162float(gv[b]), facc[a][b]);
+      }
+    } else {
+      if (active) mma_stage(acc, xp, gt, wm, wn);
+    }
+    __syncthreads();   // the next stage overwrites x, g and x'
   }
-  if constexpr (F32) {
-    for (int i = 0; i < 4; ++i)
-      for (int j = 0; j < 8; ++j)
-        out[(long long)(h1b + fr + i) * H + h2b + fc + j] = facc[i][j];
+
+  float* tile = reinterpret_cast<float*>(smem);
+  if constexpr (MODE == 3) {
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; b += 2)
+        *reinterpret_cast<float2*>(tile + (mi + a) * LDO + ni + b) =
+            make_float2(facc[a][b], facc[a][b + 1]);
   } else {
-    store_tile(out, H, h1b + r0, h2b + c0, acc, grp, tig);
+    if (active) acc_to_tile(acc, tile, wm, wn);
   }
+  cluster_sum(tile, out, H, m0, n0, mvalid, nvalid);
 }
 
 }  // namespace
@@ -266,18 +305,34 @@ xtg_staged(const uint16_t* __restrict__ x, const uint16_t* __restrict__ g,
 // (modes 1-3). Returns the launch's cudaError_t.
 extern "C" int probe_xtg_launch(const void* x, const void* g, const void* w, float* out,
                                 int N, int K, int H, int mode, void* stream) {
-  if (N <= 0 || K <= 0 || H <= 0 || N % TILE || K % TILE || H % TILE || mode < 0 || mode > 3)
+  if (N <= 0 || K <= 0 || H <= 0 || N % BK || K % 64 || H % 64 || N / BK < SPLITS ||
+      mode < 0 || mode > 3 || (mode > 0 && K > KMAX))
     return (int)cudaErrorInvalidValue;
-  const auto* xb = static_cast<const uint16_t*>(x);
-  const auto* gb = static_cast<const uint16_t*>(g);
-  const auto* wb = static_cast<const uint16_t*>(w);
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* gb = static_cast<const bf16*>(g);
+  const auto* wb = static_cast<const bf16*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(H / TILE, (mode == 0 ? K : H) / TILE);
+  const int rows = mode == 0 ? K : H;
+  const dim3 grid(((rows + BM - 1) / BM) * ((H + BN - 1) / BN), SPLITS);
+  static std::atomic<bool> set[4][MAX_DEVICES];
+  cudaError_t err = cudaSuccess;
   switch (mode) {
-    case 0: xtg_loaded<<<grid, NTHREADS, 0, s>>>(xb, gb, out, N, K, H); break;
-    case 1: xtg_computed<<<grid, NTHREADS, 0, s>>>(xb, gb, wb, out, N, K, H); break;
-    case 2: xtg_staged<false><<<grid, NTHREADS, 0, s>>>(xb, gb, wb, out, N, K, H); break;
-    default: xtg_staged<true><<<grid, NTHREADS, 0, s>>>(xb, gb, wb, out, N, K, H); break;
+    case 0:
+      if ((err = allow_smem(xtg_loaded, SMEM_LOADED, set[0])) != cudaSuccess) return (int)err;
+      xtg_loaded<<<grid, NTHREADS, SMEM_LOADED, s>>>(xb, gb, out, N, K, H);
+      break;
+    case 1:
+      if ((err = allow_smem(xtg_formed<1>, SMEM_FORMED, set[1])) != cudaSuccess) return (int)err;
+      xtg_formed<1><<<grid, NTHREADS, SMEM_FORMED, s>>>(xb, gb, wb, out, N, K, H);
+      break;
+    case 2:
+      if ((err = allow_smem(xtg_formed<2>, SMEM_FORMED, set[2])) != cudaSuccess) return (int)err;
+      xtg_formed<2><<<grid, NTHREADS, SMEM_FORMED, s>>>(xb, gb, wb, out, N, K, H);
+      break;
+    default:
+      if ((err = allow_smem(xtg_formed<3>, SMEM_FORMED, set[3])) != cudaSuccess) return (int)err;
+      xtg_formed<3><<<grid, NTHREADS, SMEM_FORMED, s>>>(xb, gb, wb, out, N, K, H);
+      break;
   }
   return (int)cudaGetLastError();
 }

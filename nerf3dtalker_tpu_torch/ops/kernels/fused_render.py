@@ -6,6 +6,9 @@ their plain PyTorch versions and the autograd Function that joins them
                     `reference_render`
   fused_render_bwd  recompute backward, `csrc/fused_render_bwd.cu`; plain
                     version `reference_render_bwd`
+  xtg_core          its weight-gradient pass alone, the X^T G core
+                    (`csrc/xtg_core.cuh`) over a list of jobs; plain version
+                    `reference_xtg_core`
   fused_render      `FusedRender`, the differentiable render: forward
                     through the first, backward through the second
   fused_render_spmd `FusedRenderSPMD`, the same on one rank's shard of a
@@ -32,7 +35,6 @@ into biases by `pack_weights`, a linear op in front of the kernel):
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -294,17 +296,18 @@ def _kernel_args(pe, z_dists, zvals, weights):
 _c_fns: Dict[str, object] = {}
 
 
-def _c_fn(name: str, argtypes):
-    """The C launcher `<name>_launch` of kernel `name`, built, loaded and
-    bound at its first launch."""
-    fn = _c_fns.get(name)
+def _c_fn(name: str, argtypes, symbol: Optional[str] = None):
+    """The C function `symbol` (default `<name>_launch`) of kernel `name`,
+    built, loaded and bound at its first call."""
+    symbol = symbol or f"{name}_launch"
+    fn = _c_fns.get(symbol)
     if fn is None:
         from nerf3dtalker_tpu_torch.ops.kernels import build
 
-        fn = getattr(build.load(name), f"{name}_launch")
+        fn = getattr(build.load(name), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _c_fns[name] = fn
+        _c_fns[symbol] = fn
     return fn
 
 
@@ -414,19 +417,113 @@ _STASH_LAYOUT = ([("pe", PE_PAD)] + [(f"x{l}", H) for l in range(8)]
                  + [("r0", H), ("r1", H2), ("drgb", FEAT), ("dr1", H2), ("dr0", H)]
                  + [(f"g{l}", H) for l in range(8)] + [("dsig", 1)])
 _STASH_WIDTH = sum(width for _, width in _STASH_LAYOUT)
-# f32 values per reduction split: every weight gradient, and the column
-# sums of the biases (b0/b5/br1 once: each split lies in one batch row),
-# padded to 64 values
-_SPLIT_WIDTH = -(-(2 * PE_PAD * H + 8 * H * H + H * H2 + H2 * FEAT   # w0p w5p wh w5x wr0 wr1 wr2
-                   + H + 1 + 8 * H + H + H2 + FEAT) // 64) * 64      # wd bd bh b0 b5 br0 br1 br2
+# The X^T G core (`csrc/xtg_core.cuh`): 128 x 128 output tiles (a narrow
+# job, out == 1, takes one tile per 128 rows), rows of 64 points, and about
+# _XTG_TARGET_BLOCKS blocks a launch (`splits_per_batch` there)
+_XTG_TILE = 128
+_XTG_ROW = 64
+_XTG_TARGET_BLOCKS = 4224
+# K2's weight-gradient jobs (in, out), as `weight_plan` in the kernel adds them
+_K2_JOBS = ([(PE_PAD, H)] + [(H, H)] * 6
+            + [(PE_PAD, H), (H, H), (H, H), (H, H2), (H2, FEAT), (H, 1)])
+
+
+def _xtg_split_floats(counts) -> int:
+    """f32 values of one split's partials: each output at a multiple of 4
+    values (`Plan::take`), the whole padded to 64."""
+    return -(-sum(-(-c // 4) * 4 for c in counts) // 64) * 64
+
+
+# f32 values per reduction split of K2: every weight gradient, and the
+# column sums of the biases (b0/b5/br1 once: each split lies in one batch
+# row), in the order of `weight_plan`
+_SPLIT_WIDTH = _xtg_split_floats(
+    [PE_PAD * H, H] + [H * H, H] * 6 + [PE_PAD * H, H, H * H, H * H, H, H * H2, H2,
+                                        H2 * FEAT, FEAT, H, 1])
+
+
+def _xtg_tiles(shapes) -> int:
+    return sum(-(-i // _XTG_TILE) * (1 if o == 1 else -(-o // _XTG_TILE)) for i, o in shapes)
+
+
+def xtg_splits_per_batch(tiles: int, B: int, rows_per_batch: int) -> int:
+    """Splits of each batch row's point axis in one launch of the core: the
+    count that brings tiles x B x splits nearest to its block target, at
+    least 1 and at most one split a row."""
+    per = tiles * B
+    return max(1, min(rows_per_batch, (2 * _XTG_TARGET_BLOCKS + per) // (2 * per)))
 
 
 def scratch_bytes(B: int, R: int) -> int:
     """Bytes of device scratch one backward launch needs: the bf16 stash
-    plus the f32 partial sums of every reduction split, a split being at
-    most 64 whole rays of one batch row (`SPLIT_RAYS` in the kernel)."""
-    splits = B * R // math.gcd(R, 64)
+    plus the f32 partial sums of every reduction split (the weight-gradient
+    pass cuts each batch row's rays into `xtg_splits_per_batch` splits)."""
+    splits = B * xtg_splits_per_batch(_xtg_tiles(_K2_JOBS), B, R)
     return B * R * NS * _STASH_WIDTH * 2 + splits * _SPLIT_WIDTH * 4
+
+
+def reference_xtg_core(jobs, B: int):
+    """Plain version of the X^T G core: for each job (x [P, in], g [P, out],
+    bias, per_batch_w, per_batch_b) the f32 sum x^T g over the points and,
+    with `bias`, the column sums of g; a per-batch output is [B, ...], each
+    batch row's own sum over its P / B points."""
+    out = []
+    for x, g, bias, per_batch_w, per_batch_b in jobs:
+        xb, gb = x.float().reshape(B, -1, x.shape[1]), g.float().reshape(B, -1, g.shape[1])
+        dw = xb.transpose(1, 2) @ gb
+        db = gb.sum(1) if bias else None
+        out.append((dw if per_batch_w else dw.sum(0),
+                    None if db is None else db if per_batch_b else db.sum(0)))
+    return out
+
+
+_CORE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong,
+                                                           ctypes.c_void_p]
+
+
+def xtg_core(jobs, B: int):
+    """The X^T G core alone (`csrc/xtg_core.cuh`, through
+    `csrc/fused_render_bwd.cu:xtg_core_launch`): jobs as
+    `reference_xtg_core`, x and g bf16 with in and out multiples of 64 (or
+    out == 1, a narrow job), P a multiple of 64 * B. A CPU tensor runs the
+    plain version; a CUDA tensor launches the core on the current stream."""
+    if jobs[0][0].device.type == "cpu":
+        return reference_xtg_core(jobs, B)
+    dev = jobs[0][0].device
+    P = jobs[0][0].shape[0]
+    if P % (_XTG_ROW * B):
+        raise ValueError(f"P must be a multiple of {_XTG_ROW} x B, got {P}")
+    ptrs, dims, outs, counts = [], [], [], []
+    f32 = dict(dtype=torch.float32, device=dev)
+    for x, g, bias, per_batch_w, per_batch_b in jobs:
+        n_in, n_out = x.shape[1], g.shape[1]
+        _check("x", x, (P, n_in), torch.bfloat16)
+        _check("g", g, (P, n_out), torch.bfloat16)
+        dw = torch.empty(((B,) if per_batch_w else ()) + (n_in, n_out), **f32)
+        db = torch.empty(((B,) if per_batch_b else ()) + (n_out,), **f32) if bias else None
+        ptrs.append((x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                     db.data_ptr() if bias else None))
+        dims += [n_in, n_out, int(per_batch_w), int(per_batch_b)]
+        outs.append((dw, db))
+        counts += [n_in * n_out] + ([n_out] if bias else [])
+    rows = P // _XTG_ROW // B
+    splits = B * xtg_splits_per_batch(_xtg_tiles([(x.shape[1], g.shape[1]) for x, g, *_ in jobs]),
+                                      B, rows)
+    nbytes = splits * _xtg_split_floats(counts) * 4
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    arr = lambda vals: (ctypes.c_void_p * len(jobs))(*vals)
+    with torch.cuda.device(dev):
+        err = _c_fn("fused_render_bwd", _CORE_ARGS, "xtg_core_launch")(
+            arr(p[0] for p in ptrs), arr(p[1] for p in ptrs), (ctypes.c_int * len(dims))(*dims),
+            arr(p[2] for p in ptrs), arr(p[3] for p in ptrs), len(jobs), B, rows,
+            scratch.data_ptr(), nbytes, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"xtg_core kernel launch failed: cudaError_t {err}")
+    xtg_core.launches += 1
+    return outs
+
+
+xtg_core.launches = 0
 
 
 @torch.no_grad()

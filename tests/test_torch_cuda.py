@@ -276,6 +276,115 @@ def test_bwd_kernel_chain_matches_its_own_stash(cuda):
         assert err <= STASH_REL_L2, f"{name}: rel L2 {err:.3e}"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_grads", [False, True])
+@pytest.mark.parametrize("B,R", [(1, 33), (1, 2048)], ids=["odd_1x33", "k4_shard_1x2048"])
+def test_bwd_kernel_matches_plain_version_at_other_shapes(cuda, B, R, input_grads):
+    """K2 at an odd ray count (the last split of the weight-gradient pass
+    shorter than the others) and at the K4 shard [1, 2048] of the 2 x 2
+    mesh, within the same limits as at [2, 64]."""
+    pe, zd, zv, packed = _kernel_inputs(cuda, B=B, R=R)
+    gf, gb, gd = _cotangents(cuda, B, R)
+    with torch.no_grad():
+        out = fr.fused_render_bwd(pe, zd, zv, packed, gf, gb, gd, input_grads=input_grads)
+        ref = fr.reference_render_bwd(pe, zd, zv, packed, gf, gb, gd, torch.bfloat16,
+                                      input_grads=input_grads)
+    torch.cuda.synchronize()
+    pairs = [(k, out[3][k], ref[3][k]) for k in ref[3]]
+    if input_grads:
+        pairs += list(zip(("d_zd", "d_zv"), out[1:3], ref[1:3]))
+        assert torch.isfinite(out[0]).all()
+        assert _rel_l2(out[0], ref[0]) <= D_PE_REL_L2, f"d_pe: rel L2 {_rel_l2(out[0], ref[0]):.3e}"
+    for name, a, b in pairs:
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        err, peak = float((a - b).abs().max()), float(b.abs().max())
+        assert err <= BWD_RTOL * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two launches on the same inputs give the same bits."""
+    pe, zd, zv, packed = _kernel_inputs(cuda, B=2, R=64)
+    gf, gb, gd = _cotangents(cuda, 2, 64)
+    with torch.no_grad():
+        a = fr.fused_render_bwd(pe, zd, zv, packed, gf, gb, gd, input_grads=True)
+        b = fr.fused_render_bwd(pe, zd, zv, packed, gf, gb, gd, input_grads=True)
+    for x, y in zip(a[:3] + tuple(a[3].values()), b[:3] + tuple(b[3].values())):
+        assert torch.equal(x, y)
+
+
+# the X^T G core against torch.matmul in f32 on the same bf16 values: the
+# products are exact in f32 on both sides, and only the order of the f32
+# sums differs
+XTG_RTOL = 1e-5
+
+
+def _xtg_inputs(dev, shapes, B, rows, seed):
+    g = torch.Generator().manual_seed(seed)
+    P = B * rows * 64
+    return [tuple(torch.randn(P, n, generator=g).to(dev, torch.bfloat16) for n in shape)
+            for shape in shapes]
+
+
+def _xtg_check(name, got, ref):
+    assert got.shape == ref.shape and torch.isfinite(got).all(), name
+    err, peak = float((got - ref).abs().max()), float(ref.abs().max())
+    assert err <= XTG_RTOL * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 384), (384, 384), (384, 192), (192, 256)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_xtg_core_matches_matmul(cuda, shape):
+    """One job of each shape K2's weight-gradient pass runs (w0p / w5p,
+    the hidden layers, rgb_1, rgb_2), with its bias sums, over two batch
+    rows of 33 rows of 64 points (an odd row count: splits of unequal
+    length)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (x, g), = _xtg_inputs(cuda, [shape], B=2, rows=33, seed=7)
+    before = fr.xtg_core.launches
+    (dw, db), = fr.xtg_core([(x, g, True, False, False)], B=2)
+    torch.cuda.synchronize()
+    assert fr.xtg_core.launches == before + 1
+    _xtg_check("dw", dw, x.float().T @ g.float())
+    _xtg_check("db", db, g.float().sum(0))
+
+
+@pytest.mark.cuda
+def test_xtg_core_per_batch_and_narrow_jobs(cuda):
+    """Per-batch outputs (each batch row's own sum, as b0 / b5 / br1 in K2)
+    and a narrow job (dwd = x7^T d_sigma, dbd) in one launch with a shared
+    job."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, rows = 3, 5
+    (x1, g1), (x2, g2), (x3, g3) = _xtg_inputs(cuda, [(64, 384), (384, 1), (192, 256)], B, rows,
+                                               seed=8)
+    outs = fr.xtg_core([(x1, g1, True, True, True), (x2, g2, True, False, False),
+                        (x3, g3, False, False, True)], B=B)
+    torch.cuda.synchronize()
+    for (dw, db), (x, g, bias, pw, pb) in zip(outs, [(x1, g1, True, True, True),
+                                                    (x2, g2, True, False, False),
+                                                    (x3, g3, False, False, True)]):
+        xb, gb = x.float().view(B, -1, x.shape[1]), g.float().view(B, -1, g.shape[1])
+        ref_w = torch.stack([a.T @ b for a, b in zip(xb, gb)])
+        _xtg_check("dw", dw, ref_w if pw else ref_w.sum(0))
+        if bias:
+            _xtg_check("db", db, gb.sum(1) if pb else gb.sum(1).sum(0))
+        else:
+            assert db is None
+
+
+@pytest.mark.cuda
+def test_xtg_core_refuses_a_bad_job(cuda):
+    """A job the core does not take (in not a multiple of 64) is refused by
+    the launcher, and the wrapper raises instead of returning."""
+    (x, g), = _xtg_inputs(cuda, [(32, 384)], B=1, rows=2, seed=9)
+    before = fr.xtg_core.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fr.xtg_core([(x, g, True, False, False)], B=1)
+    assert fr.xtg_core.launches == before
+
+
 def _upsampler_block(dev, i, B=2, Hc=24, Wc=16, seed=0):
     """Block i of the Reso64 decoder widths on a 24x16 featmap grid (3x2
     tiles at level 0, 12x8 at level 2: interior halos and all four image

@@ -204,3 +204,139 @@ def test_fused_render_grads_match_jax_grad(setup):
         a, b = a.numpy(), np.asarray(b)
         err, peak = float(np.abs(a - b).max()), float(np.abs(b).max())
         assert err <= 1e-5 * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
+def test_scratch_holds_the_stash_and_the_splits_partials():
+    """K2's device scratch (`scratch_bytes`): the bf16 stash of 7,617 values
+    a point in `_STASH_LAYOUT` order, then one f32 partial per reduction
+    split of the weight-gradient pass (`csrc/xtg_core.cuh`: 91 tiles of
+    128 x 128 over K2's 13 jobs, each batch row's rays cut into
+    `xtg_splits_per_batch` splits)."""
+    assert fr._STASH_WIDTH == 64 + 8 * 384 + 384 + 192 + 256 + 192 + 384 + 8 * 384 + 1 == 7617
+    assert [n for n, _ in fr._STASH_LAYOUT][:2] == ["pe", "x0"]
+    assert fr._STASH_LAYOUT[-1] == ("dsig", 1)
+    # every weight and bias gradient once, each at a multiple of 4 floats
+    outputs = (2 * 64 * 384 + 8 * 384 * 384 + 384 * 192 + 192 * 256 + 384      # weights
+               + 384 + 6 * 384 + 384 + 384 + 192 + 256 + 1)                    # biases
+    assert outputs <= fr._SPLIT_WIDTH < outputs + 64 + 4 * 26
+    assert fr._SPLIT_WIDTH % 64 == 0
+    assert fr._xtg_tiles(fr._K2_JOBS) == 91
+    # the Reso64 training batch: 23 splits a batch row, 250 MB of partials
+    assert fr.xtg_splits_per_batch(91, 2, 4096) == (2 * fr._XTG_TARGET_BLOCKS + 182) // 364
+    for B, R in ((2, 4096), (1, 2048), (1, 33), (2, 64), (1, 1)):
+        splits = fr.xtg_splits_per_batch(91, B, R)
+        assert 1 <= splits <= R
+        assert fr.scratch_bytes(B, R) == (B * R * NS_K2 * 7617 * 2
+                                          + B * splits * fr._SPLIT_WIDTH * 4)
+    assert fr.scratch_bytes(2, 4096) < 8.68e9    # 8.68 GB with 128 splits of 64 rays
+
+
+NS_K2 = fr.NS
+
+
+def test_xtg_core_plain_version_matches_jax():
+    """The X^T G core's plain version (`reference_xtg_core`) against
+    jax.numpy on the same inputs, f32: a shared job with its bias sums, a
+    per-batch job (weight and bias), and a narrow job (out == 1, as dwd and
+    dbd); the wrapper on CPU tensors takes it and launches nothing."""
+    rng = np.random.default_rng(3)
+    Bj, P = 3, 3 * 128
+    shapes = [(64, 128), (192, 64), (128, 1)]
+    data = [(rng.standard_normal((P, i)).astype(np.float32),
+             rng.standard_normal((P, o)).astype(np.float32)) for i, o in shapes]
+    flags = [(True, False, False), (True, True, True), (True, False, False)]
+    jobs = [(torch.from_numpy(x), torch.from_numpy(g), *f) for (x, g), f in zip(data, flags)]
+    before = fr.xtg_core.launches
+    outs = fr.xtg_core(jobs, Bj)
+    assert fr.xtg_core.launches == before
+    for (x, g), (bias, pw, pb), (dw, db) in zip(data, flags, outs):
+        xb, gb = jnp.asarray(x).reshape(Bj, -1, x.shape[1]), jnp.asarray(g).reshape(Bj, -1, g.shape[1])
+        ref_w = jnp.einsum("bpi,bpo->bio", xb, gb, precision=jax.lax.Precision.HIGHEST)
+        ref_b = gb.sum(1)
+        for got, ref in ((dw, ref_w if pw else ref_w.sum(0)), (db, ref_b if pb else ref_b.sum(0))):
+            ref = np.asarray(ref)
+            assert got.shape == ref.shape
+            err, peak = float(np.abs(got.numpy() - ref).max()), float(np.abs(ref).max())
+            assert err <= 1e-5 * peak, f"max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
+# The composite as the backward kernel's ray kernel runs it: one warp, lane l
+# holding samples 2l and 2l + 1; the transmittance from an inclusive product
+# scan over the lanes (Hillis-Steele, shuffles up by 1, 2, 4, 8, 16) of
+# t[2l] t[2l+1], and the suffix sum of d_w w from a scan downwards. Against
+# the serial loop the kernel ran before, in float32, op by op: the products
+# and sums associate differently, so the two agree to rounding only. Over 64
+# samples that is within COMPOSITE_RTOL of each output's max|serial| (the
+# worst measured here, with densities that drive alpha to 1 and t to 1e-10,
+# was 1.6e-7).
+COMPOSITE_RTOL = 1e-5
+f32 = np.float32
+
+
+def _composite_serial(sp, zd, zv, dwr, g_bg, g_depth):
+    n = sp.shape[0]
+    a = f32(1) - np.exp(-np.maximum(sp, f32(0)) * zd)
+    t = f32(1) - a + f32(1e-10)
+    trans, w = np.empty(n, f32), np.empty(n, f32)
+    tr = f32(1)
+    for p in range(n):
+        trans[p] = tr
+        w[p] = a[p] * tr
+        tr = f32(tr * t[p])
+    ds, dzd = np.empty(n, f32), np.empty(n, f32)
+    suffix = f32(0)
+    for p in range(n - 1, -1, -1):
+        d_w = f32(f32(dwr[p] + f32(zv[p] * g_depth)) - g_bg)
+        d_alpha = f32(f32(d_w * trans[p]) - f32(suffix / t[p]))
+        suffix = f32(suffix + f32(d_w * w[p]))
+        one_m_a = f32(1) - a[p]
+        ds[p] = d_alpha * zd[p] * one_m_a * (f32(1) if sp[p] > 0 else f32(0))
+        dzd[p] = d_alpha * max(sp[p], f32(0)) * one_m_a
+    return w, ds, dzd, w * g_depth
+
+
+def _composite_warp_scan(sp, zd, zv, dwr, g_bg, g_depth):
+    a = f32(1) - np.exp(-np.maximum(sp, f32(0)) * zd)
+    t = f32(1) - a + f32(1e-10)
+    lanes = np.arange(32)
+    incl = t[0::2] * t[1::2]
+    for o in (1, 2, 4, 8, 16):
+        v = np.roll(incl, o)
+        incl = np.where(lanes >= o, v * incl, incl)
+    excl = np.where(lanes == 0, f32(1), np.roll(incl, 1))
+    T = np.stack([excl, excl * t[0::2]], 1).reshape(-1)
+    w = a * T
+    d_w = (dwr + zv * g_depth) - g_bg
+    c = d_w * w
+    sfx = c[0::2] + c[1::2]
+    for o in (1, 2, 4, 8, 16):
+        v = np.roll(sfx, -o)
+        sfx = np.where(lanes + o < 32, sfx + v, sfx)
+    after = np.where(lanes == 31, f32(0), np.roll(sfx, -1))
+    suffix = np.stack([after + c[1::2], after], 1).reshape(-1)
+    d_alpha = d_w * T - suffix / t
+    one_m_a = f32(1) - a
+    ds = d_alpha * zd * one_m_a * (sp > 0).astype(f32)
+    dzd = d_alpha * np.maximum(sp, f32(0)) * one_m_a
+    return w, ds, dzd, w * g_depth
+
+
+@pytest.mark.parametrize("density", [1.0, 30.0], ids=["moderate", "opaque"])
+def test_warp_scan_composite_matches_the_serial_composite(density):
+    rng = np.random.default_rng(11)
+    outs = {"weights": [[], []], "d_sigma": [[], []], "d_zd": [[], []], "d_zv": [[], []]}
+    for _ in range(64):
+        sp = (rng.standard_normal(64) * density).astype(f32)
+        zd = (rng.random(64) * 0.1).astype(f32)
+        zv = np.sort(rng.standard_normal(64)).astype(f32)
+        dwr = rng.standard_normal(64).astype(f32)
+        g_bg, g_depth = f32(rng.standard_normal()), f32(rng.standard_normal())
+        for k, res in enumerate((_composite_serial(sp, zd, zv, dwr, g_bg, g_depth),
+                                 _composite_warp_scan(sp, zd, zv, dwr, g_bg, g_depth))):
+            for name, v in zip(outs, res):
+                outs[name][k].append(v)
+    for name, (serial, scan) in outs.items():
+        serial, scan = np.stack(serial), np.stack(scan)
+        assert np.isfinite(scan).all(), name
+        err, peak = float(np.abs(scan - serial).max()), float(np.abs(serial).max())
+        assert err <= COMPOSITE_RTOL * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"

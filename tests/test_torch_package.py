@@ -47,6 +47,27 @@ def test_kernel_source_is_in_the_package():
     for name in build.sources():
         assert (build.CSRC / f"{name}.cu").is_file()
         assert build.library_path(name).parent == build.BUILD_DIR
+    # the shared headers: the staged X^T G core (K2's weight gradients and
+    # the probe) and the fused upsampler's common code
+    assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == ["fused_upsampler_common.cuh",
+                                                               "xtg_core.cuh"]
+
+
+def test_a_header_edit_rebuilds_every_kernel(tmp_path, monkeypatch):
+    """The library name hashes the shared headers too: an edited
+    `xtg_core.cuh` gives every kernel a new library, so a stale build of
+    K2 or the probe is never loaded."""
+    import shutil
+
+    from nerf3dtalker_tpu_torch.ops.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in build.sources()}
+    (csrc / "xtg_core.cuh").write_text((csrc / "xtg_core.cuh").read_text() + "\n// edited\n")
+    after = {name: build.library_path(name) for name in build.sources()}
+    assert all(before[n] != after[n] for n in before)
 
 
 @pytest.fixture

@@ -36,6 +36,7 @@ while this process computes the JAX and single-rank references.
 """
 
 import functools
+import shutil
 import threading
 
 import jax
@@ -165,7 +166,10 @@ def cli_runs(tmp_path_factory):
             raise out["error"]
         return out
 
-    return result
+    yield result
+    # the checkpoints (~270 MB each), once the module's tests have read them
+    thread.join(timeout=600)
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -186,9 +190,19 @@ def spawned(step_inputs, tmp_path_factory):
                  "losses": {k: torch.from_numpy(v) for k, v in _loss_inputs().items()}}}
     job2 = {"device": "cpu", "meshes": [(2, 1), (1, 2)], "step": _step_job(batch, state),
             "checks": {"audio": {"mels": _audio_mels(), "init_seed": 1, "dropout_seed": 5}}}
-    waits = {"2x2": selfcheck.start(job22, 4, str(tmp_path_factory.mktemp("mesh22"))),
-             "2": selfcheck.start(job2, 2, str(tmp_path_factory.mktemp("mesh2")))}
-    return {k: functools.lru_cache(maxsize=None)(w) for k, w in waits.items()}
+    dirs = {"2x2": tmp_path_factory.mktemp("mesh22"), "2": tmp_path_factory.mktemp("mesh2")}
+    waits = {"2x2": selfcheck.start(job22, 4, str(dirs["2x2"])),
+             "2": selfcheck.start(job2, 2, str(dirs["2"]))}
+    waits = {k: functools.lru_cache(maxsize=None)(w) for k, w in waits.items()}
+    yield waits
+    # the jobs and the ranks' results (~120-330 MB each), once the module's
+    # tests have read them; every rank has ended when its wait returns
+    for k, d in dirs.items():
+        try:
+            waits[k]()
+        except BaseException:   # a failed job has failed its tests already
+            pass
+        shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -25,6 +25,8 @@ takes SSIM's statistics in f32, the port in f64).
 
 import jax
 import jax.numpy as jnp
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -319,3 +321,6 @@ def test_cli_train_save_and_resume_on_cpu(tmp_path, capsys):
     assert rec["epoch"] == 1
     assert checkpoints.load_checkpoint(str(tmp_path / "ckpt"))["step"] == 8
     assert (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches) == before
+    # checked: the two checkpoints (~270 MB each, Audio2Style and its Adam
+    # moments at full width) need not outlive the test
+    shutil.rmtree(tmp_path / "ckpt")
