@@ -7,7 +7,8 @@ Phases (any failure exits non-zero):
   1. build    — compile every CUDA kernel from the sources in the checkout,
                 one `nvcc` each, all at once;
   2. kernels  — call each kernel's wrapper on the card at the shapes its
-                main path gives it (K1 at the Reso64 serving chunk, B=4;
+                main path gives it (K1 at the Reso64 serving chunk, B=4,
+                with its design's numbers and its time at the K4 shard;
                 K2 at the Reso64 training batch, B=2, both input_grads
                 variants; K5-fwd at each of the three Reso64 decoder blocks
                 for the serving merge pass B=4, the training merge pass B=2
@@ -198,12 +199,25 @@ def phase_build():
     t0 = time.perf_counter()
     records = build.build_all(KERNELS)
     secs = time.perf_counter() - t0
+    ptxas = {}
     for r in records:
-        ptxas = [ln.strip() for ln in r["log"].splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
-        log(f"build {r['name']}: {r['seconds']:.1f} s; " + " | ".join(ptxas))
+        ptxas[r["name"]] = [ln.strip() for ln in r["log"].splitlines()
+                            if "registers" in ln or "spill" in ln or "smem" in ln]
+        log(f"build {r['name']}: {r['seconds']:.1f} s; " + " | ".join(ptxas[r["name"]]))
     log(f"build: {len(records)} kernel(s) in {secs:.1f} s (concurrently) with {version}")
-    return {"nvcc": version, "build_s": secs}
+    return {"nvcc": version, "build_s": secs, "ptxas": ptxas}
+
+
+def ptxas_count(lines, pattern: str):
+    """The first integer that `pattern` (a regex with one group) finds in
+    the compiler's lines, or None (a kernel loaded from an earlier build)."""
+    import re
+
+    for ln in lines:
+        m = re.search(pattern, ln)
+        if m:
+            return int(m.group(1))
+    return None
 
 
 def bound(flops: float, nbytes: float):
@@ -281,7 +295,7 @@ def fused_render_inputs(seed: int, B: int = 4):
     return (*rays_and_pe(*base_camera(B)), packed)
 
 
-def phase_kernels(seed: int):
+def phase_kernels(seed: int, ptxas_lines):
     import torch
 
     from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
@@ -315,12 +329,36 @@ def phase_kernels(seed: int):
     log(f"fused_render_fwd B={B} R={R}: {ms:.3f} ms (plain {plain_ms:.3f} ms); "
         f"{flops / 1e12:.4f} TFLOP, {nbytes / 1e6:.1f} MB -> bound {bound_ms:.3f} ms "
         f"by {bound_by}; {flops / ms / 1e9:.1f} TFLOP/s achieved")
+
+    # what the design does: the weight stream a launch reads from L2 as the
+    # design computes it (once per block's pair of rays; no cluster shares
+    # it; not a measured count), the ring, the compiler's registers, and K1
+    # at the K4 shard [1, 2048]
+    design = fr.fused_render_fwd_design()
+    sharing = design["rays_per_block"]
+    l2_bytes = -(-B * R // sharing) * design["stream_bytes"]
+    regs = ptxas_count(ptxas_lines, r"Used (\d+) registers")
+    spill = ptxas_count(ptxas_lines, r"(\d+) bytes spill stores")
+    shard = [t[:1, :2048].contiguous() for t in (pe, zd, zv)]
+    w_shard = {k: (v[:1].contiguous() if k in ("b0", "b5", "br1") else v)
+               for k, v in packed.items()}
+    with torch.no_grad():
+        ms_shard = cuda_ms(lambda: fr.fused_render_fwd(*shard, w_shard), reps=10)
+    log(f"fused_render_fwd design: {design['rays_per_block']} rays a block "
+        f"({design['resident_blocks']} resident), cluster size 1, a ring of "
+        f"{design['stages']} slots of {design['chunk_rows']}-row chunks; the stream "
+        f"{design['chunks']} chunks, {design['stream_bytes']:,} B, read from L2 once per "
+        f"{sharing} rays: {l2_bytes / 1e9:.2f} GB a launch at B={B} (design model, not "
+        f"measured); {regs} registers a thread, {spill} B spilled, "
+        f"{design['smem_bytes']:,} B of shared memory a block")
+    log(f"fused_render_fwd at the K4 shard [1, 2048]: {ms_shard:.3f} ms (B={B}: {ms:.3f} ms)")
     return {"name": "fused_render_fwd", "route": "cuda",
             "source": "nerf3dtalker_tpu_torch/csrc/fused_render_fwd.cu",
             "replaces": "nerf3dtalker_tpu/ops/pallas/fused_render.py:151",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}  # no single PyTorch call computes MLP + composite
+            "library_ms": None,   # no single PyTorch call computes MLP + composite
+            "ms_shard_1x2048": ms_shard}
 
 
 def mlp_macs(packed) -> int:
@@ -1046,6 +1084,11 @@ def phase_breakdown(seed: int):
         def pack():
             st["w"] = fr.pack_weights(dict(model.fg_CD_predictor.named_parameters()), *codes)
 
+        def pack_stream():   # K1's weight stream, as its wrapper lays it out every call
+            if "w_bf16" not in st:
+                st["w_bf16"] = {k: v.to(torch.bfloat16) for k, v in st["w"].items()}
+            fr.pack_stream(st["w_bf16"])
+
         def kernel():
             st["out"] = fr.fused_render_fwd(*st["in"], st["w"])
 
@@ -1067,7 +1110,8 @@ def phase_breakdown(seed: int):
             model(xy_b, codes[0], codes[1], codes[2], Rm, Tv, iv)
 
         times = {name: cuda_ms(fn, reps=5) for name, fn in
-                 (("rays_pe", rays_pe), ("pack_weights", pack), ("fused_render_fwd", kernel),
+                 (("rays_pe", rays_pe), ("pack_weights", pack), ("pack_stream", pack_stream),
+                  ("fused_render_fwd", kernel),
                   ("decoder_x2", decoder), ("decoder_x2_fused_upsampler", decoder_fused),
                   ("chunk_total", chunk),
                   ("audio2style_8_frames", lambda: a2s(mels)))}
@@ -1465,7 +1509,7 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
 
     build_info = phase_build()
-    k1 = phase_kernels(args.seed)
+    k1 = phase_kernels(args.seed, build_info["ptxas"]["fused_render_fwd"])
     k2 = phase_kernel_bwd(args.seed)
     serving_launches, ms_per_frame = phase_serving(args.seed, FRAMES, workdir)
     train = phase_training(args.seed, workdir)

@@ -3,7 +3,8 @@ their plain PyTorch versions and the autograd Function that joins them
 (port of `nerf3dtalker_tpu/ops/pallas/fused_render.py`).
 
   fused_render_fwd  forward, `csrc/fused_render_fwd.cu`; plain version
-                    `reference_render`
+                    `reference_render`; it reads the weights as one stream
+                    of chunks laid out by `pack_stream`
   fused_render_bwd  recompute backward, `csrc/fused_render_bwd.cu`; plain
                     version `reference_render_bwd`
   xtg_core          its weight-gradient pass alone, the X^T G core
@@ -314,9 +315,82 @@ def _c_fn(name: str, argtypes, symbol: Optional[str] = None):
 # every pointer as c_void_p: left undeclared, ctypes passes a Python int as
 # a 32-bit C int and cuts the pointer
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P] * 21 + [_I, _I, _P]                           # ..., B, R, stream
+_FWD_ARGS = [_P] * 15 + [_I, _I, _P]                           # ..., B, R, stream
 _BWD_ARGS = [_P] * 40 + [_I, _I, _I, ctypes.c_longlong, _P]    # ..., B, R, input_grads,
 #                                                                scratch bytes, stream
+
+
+# K1's weight stream (`csrc/fused_render_fwd.cu`): the matrices in the order
+# the kernel consumes them -- fea_0's PE rows, fea_1..4, fea_5's PE rows then
+# its hidden rows, fea_6, fea_7, rgb_0, rgb_1, rgb_2 -- cut into chunks of
+# STREAM_ROWS rows. The density head wd is not in it.
+STREAM_ROWS = 32
+_STREAM = (("w0p", None), ("wh", slice(0, 4)), ("w5p", None), ("w5x", None),
+           ("wh", slice(4, 6)), ("wr0", None), ("wr1", None), ("wr2", None))
+
+
+def _stream_runs(weights):
+    """(key, first matrix index or None, [L, K, N]) for each run of _STREAM."""
+    for key, sl in _STREAM:
+        w = weights[key]
+        yield (key, None, w[None]) if sl is None else (key, sl.start, w[sl])
+
+
+def stream_layout(weights) -> list:
+    """K1's weight stream chunk by chunk, in order: (key, matrix index in a
+    stacked key or None, first row, rows, N, offset in elements). A chunk
+    holds rows [first, first + rows) of its [K, N] matrix; the last chunk of
+    a matrix is shorter when K is not a multiple of STREAM_ROWS."""
+    out, off = [], 0
+    for key, m0, run in _stream_runs(weights):
+        L, K, N = run.shape
+        for m in range(L):
+            for k0 in range(0, K, STREAM_ROWS):
+                rows = min(STREAM_ROWS, K - k0)
+                out.append((key, None if m0 is None else m0 + m, k0, rows, N, off))
+                off += rows * N
+    return out
+
+
+def pack_stream(weights) -> torch.Tensor:
+    """The weights as K1 reads them, flat, in the weights' dtype: the chunks
+    of `stream_layout` in order, each [rows, N] chunk stored as 8 x 8 core
+    matrices [N / 8][rows / 8][8][8] (the 8 rows of a core matrix are 8
+    consecutive k, its 8 columns 8 consecutive n), so that each chunk is one
+    contiguous copy into the kernel's shared memory and the B operand of
+    its wgmma as it lands. A reshape and permute, no kernel of its own."""
+    parts = []
+    for _, _, run in _stream_runs(weights):
+        L, K, N = run.shape
+        full = K - K % STREAM_ROWS
+        if full == K:
+            parts.append(run.reshape(L * K // STREAM_ROWS, STREAM_ROWS // 8, 8, N // 8, 8)
+                         .permute(0, 3, 1, 2, 4).reshape(-1))
+            continue
+        for w in run:        # a short last chunk: matrix by matrix
+            if full:
+                parts.append(w[:full].reshape(full // STREAM_ROWS, STREAM_ROWS // 8, 8, N // 8, 8)
+                             .permute(0, 3, 1, 2, 4).reshape(-1))
+            parts.append(w[full:].reshape((K - full) // 8, 8, N // 8, 8)
+                         .permute(2, 0, 1, 3).reshape(-1))
+    return torch.cat(parts)
+
+
+_DESIGN_KEYS = ("rays_per_block", "stages", "chunk_rows", "chunks", "stream_bytes", "smem_bytes",
+                "resident_blocks")
+
+
+def fused_render_fwd_design(device=None) -> Dict[str, int]:
+    """K1's design as compiled (`fused_render_fwd_design` in its source):
+    rays a block, ring slots, rows a chunk, the stream's chunks and bytes,
+    shared memory a block, and the blocks resident at once on `device` (the
+    most its persistent grid holds)."""
+    out = (ctypes.c_longlong * len(_DESIGN_KEYS))()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        err = _c_fn("fused_render_fwd", [_P], "fused_render_fwd_design")(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fused_render_fwd_design failed: cudaError_t {err}")
+    return dict(zip(_DESIGN_KEYS, out))
 
 
 def fused_render_fwd(
@@ -329,7 +403,8 @@ def fused_render_fwd(
     """Returns (features [B, R, FEAT], bg_alpha [B, R], depth [B, R]), f32.
 
     A CPU tensor runs `reference_render`. A CUDA tensor launches the kernel,
-    which computes in bf16 with f32 accumulation, on the current stream."""
+    which computes in bf16 with f32 accumulation, on the current stream,
+    with the weights packed into its stream (`pack_stream`)."""
     if pe.device.type == "cpu":
         return reference_render(pe, z_dists, zvals, weights, compute_dtype)
     if compute_dtype != torch.bfloat16:
@@ -339,8 +414,9 @@ def fused_render_fwd(
     feat = torch.empty((B, R, FEAT), dtype=torch.float32, device=pe.device)
     bg = torch.empty((B, R), dtype=torch.float32, device=pe.device)
     depth = torch.empty((B, R), dtype=torch.float32, device=pe.device)
-    ptrs = [t.data_ptr() for t in (pe, z_dists, zvals)]
-    ptrs += [w[k].data_ptr() for k in _WEIGHTS + _BIASES]
+    ws = pack_stream(w)
+    ptrs = [t.data_ptr() for t in (pe, z_dists, zvals, ws, w["wd"])]
+    ptrs += [w[k].data_ptr() for k in _BIASES]
     ptrs += [t.data_ptr() for t in (feat, bg, depth)]
     with torch.cuda.device(pe.device):   # the launch goes to the current device
         err = _c_fn("fused_render_fwd", _FWD_ARGS)(

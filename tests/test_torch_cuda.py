@@ -105,10 +105,53 @@ def test_kernel_matches_plain_version(cuda):
         ref = fr.reference_render(pe, zd, zv, packed, torch.bfloat16)
     torch.cuda.synchronize()
     assert fr.fused_render_fwd.launches == before + 1
+    _check_fwd(out, ref)
+
+
+def _check_fwd(out, ref):
     for name, a, b in zip(("feat", "bg_alpha", "depth"), out, ref):
-        assert torch.isfinite(a).all(), name
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
         err, peak = float((a - b).abs().max()), float(b.abs().max())
         assert err <= RTOL * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R", [(1, 33), (3, 5), (1, 1), (1, 2048)],
+                         ids=["odd_1x33", "3x5", "one_ray", "k4_shard_1x2048"])
+def test_kernel_matches_plain_version_at_other_shapes(cuda, B, R):
+    """K1 where a block's second ray is absent (33 and 15 rays: a block
+    takes two), at one ray, and at the K4 shard [1, 2048] of the 2 x 2
+    mesh."""
+    pe, zd, zv, packed = _kernel_inputs(cuda, B=B, R=R)
+    with torch.no_grad():
+        out = fr.fused_render_fwd(pe, zd, zv, packed)
+        ref = fr.reference_render(pe, zd, zv, packed, torch.bfloat16)
+    torch.cuda.synchronize()
+    _check_fwd(out, ref)
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic(cuda):
+    """Every sum in a fixed order: two launches give the same bits."""
+    pe, zd, zv, packed = _kernel_inputs(cuda, B=2, R=64)
+    with torch.no_grad():
+        a = fr.fused_render_fwd(pe, zd, zv, packed)
+        b = fr.fused_render_fwd(pe, zd, zv, packed)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_kernel_design_matches_its_weight_stream(cuda):
+    """The stream the wrapper packs is the one the kernel was compiled to
+    read: as many chunks, as many bytes, as many rows a chunk."""
+    _, _, _, packed = _kernel_inputs(cuda, B=1, R=1)
+    w = {k: v.to(torch.bfloat16) for k, v in packed.items() if k.startswith("w")}
+    design = fr.fused_render_fwd_design()
+    assert design["chunks"] == len(fr.stream_layout(w)) == 118
+    assert design["stream_bytes"] == fr.pack_stream(w).numel() * 2 == 2_703_360
+    assert design["chunk_rows"] == fr.STREAM_ROWS
+    assert design["resident_blocks"] >= 1
 
 
 @pytest.mark.cuda

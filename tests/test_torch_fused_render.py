@@ -110,6 +110,87 @@ def test_wrapper_takes_plain_version_on_cpu(setup):
     assert fr.fused_render_fwd.launches == before   # the kernel did not run
 
 
+def _unpack_chunk(stream, off, rows, n):
+    """Undo a chunk's core-matrix layout: [n/8][rows/8][8][8] -> [rows, n]."""
+    return stream[off:off + rows * n].reshape(n // 8, rows // 8, 8, 8).permute(
+        1, 2, 0, 3).reshape(rows, n)
+
+
+# (Reso64 widths: PE_PAD, hidden, rgb_1, FEAT) -> 118 chunks, 2,703,360 bytes
+# in bf16; at this file's widths every hidden matrix is one chunk and rgb_2
+# (16 rows) one short chunk: 2 + 4 + 2 + 1 + 2 + 1 + 1 + 1 = 14
+@pytest.mark.parametrize("widths,chunks,nbytes", [
+    ((64, 384, 192, 256), 118, 2_703_360), ((64, HID, HID // 2, FEAT), 14, 26_112)],
+    ids=["reso64", "test_widths"])
+def test_weight_stream_chunks(widths, chunks, nbytes):
+    pe, h, h2, feat = widths
+    shapes = {"w0p": (pe, h), "wh": (6, h, h), "w5p": (pe, h), "w5x": (h, h),
+              "wr0": (h, h), "wr1": (h, h2), "wr2": (h2, feat)}
+    g = torch.Generator().manual_seed(0)
+    w = {k: torch.randn(v, generator=g).to(torch.bfloat16) for k, v in shapes.items()}
+    layout, stream = fr.stream_layout(w), fr.pack_stream(w)
+    assert len(layout) == chunks and stream.numel() * 2 == nbytes
+    assert stream.dtype == torch.bfloat16
+    for key, m, k0, rows, n, off in layout:     # every chunk is its rows of its matrix
+        mat = w[key] if m is None else w[key][m]
+        assert torch.equal(_unpack_chunk(stream, off, rows, n), mat[k0:k0 + rows]), (key, m, k0)
+
+
+def _k1_twin(pe, z_dists, zvals, weights):
+    """K1's consumption of its weight stream, on the CPU in f32: the stream
+    read chunk by chunk in order, each chunk's core-matrix layout undone and
+    its product with the matching K range of the layer's input accumulated,
+    as the kernel accumulates it (fea_5: its PE rows, then its hidden rows,
+    into one sum), then bias and ReLU, the density head, the composite and
+    the weighted sum over the samples."""
+    w = {k: v.float() for k, v in weights.items()}
+    stream = fr.pack_stream(w)
+    B, R, ns, pe_pad = pe.shape
+    outs = []
+    for b in range(B):
+        chunks = iter(fr.stream_layout(w))
+        p = pe[b].reshape(R * ns, pe_pad)
+
+        def layer(inputs, bias):
+            acc = 0.0
+            for a in inputs:
+                k = 0
+                while k < a.shape[1]:
+                    _, _, k0, rows, n, off = next(chunks)
+                    assert k0 == k
+                    acc = acc + a[:, k0:k0 + rows] @ _unpack_chunk(stream, off, rows, n)
+                    k += rows
+            return acc + bias
+
+        x = torch.relu(layer([p], w["b0"][b]))
+        for i in range(4):
+            x = torch.relu(layer([x], w["bh"][i]))
+        x = torch.relu(layer([p, x], w["b5"][b]))
+        for i in range(4, 6):
+            x = torch.relu(layer([x], w["bh"][i]))
+        sigma = torch.relu(x @ w["wd"][:, 0] + w["bd"])
+        r1 = torch.relu(layer([layer([x], w["br0"])], w["br1"][b]))
+        rgb = layer([r1], w["br2"])
+        assert next(chunks, None) is None      # the whole stream, nothing more
+        outs.append(fr._composite(rgb, sigma, z_dists[b], zvals[b]))
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def test_stream_twin_matches_reference_render_and_jax_f32(setup):
+    """A chunk-order or layout bug of the stream shows here without a card:
+    the twin within 1e-5 of each output's max|ref| of `reference_render`
+    and of the JAX reference."""
+    inputs, jp, tp = setup
+    twin = _k1_twin(*_torch(inputs), tp)
+    ref = fr.reference_render(*_torch(inputs), tp, torch.float32)
+    jref = jax.jit(jfr.reference_render)(*(jnp.asarray(v) for v in inputs), jp)
+    for name, a, b, c in zip(("feat", "bg_alpha", "depth"), twin, ref, jref):
+        for other in (b, np.asarray(c)):
+            other = torch.as_tensor(np.asarray(other))
+            err, peak = float((a - other).abs().max()), float(other.abs().max())
+            assert err <= 1e-5 * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
 def _cotangents(seed=1):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((B, R, FEAT)).astype(np.float32),

@@ -48,9 +48,10 @@ def test_kernel_source_is_in_the_package():
         assert (build.CSRC / f"{name}.cu").is_file()
         assert build.library_path(name).parent == build.BUILD_DIR
     # the shared headers: the staged X^T G core (K2's weight gradients and
-    # the probe) and the fused upsampler's common code
+    # the probe), the fused upsampler's common code, and the Hopper helpers
+    # of K1 and K2 (wgmma, mbarriers, bulk copies)
     assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == ["fused_upsampler_common.cuh",
-                                                               "xtg_core.cuh"]
+                                                               "hopper.cuh", "xtg_core.cuh"]
 
 
 def test_a_header_edit_rebuilds_every_kernel(tmp_path, monkeypatch):
