@@ -15,8 +15,9 @@ Phases (any failure exits non-zero):
                 and the bg pass B=1; K5-bwd at each block for B=2 and B=1),
                 hold it against its plain PyTorch version on the same
                 inputs, and time both with CUDA events (K2's launches, the
-                ray kernel and the X^T G core's two, apart with
-                torch.profiler);
+                ray kernel and the X^T G core's two, and K5-bwd's four
+                apart with torch.profiler; K5-fwd's device time and design
+                numbers per block);
   3. serving  — drive `cli animate` at Reso64 (featmap 64, image 512, chunk
                 4) on a wav synthesized from the seed, with seeded weights;
                 count kernel launches, check the frames, and hold the first
@@ -202,8 +203,10 @@ def phase_build():
     ptxas = {}
     for r in records:
         ptxas[r["name"]] = [ln.strip() for ln in r["log"].splitlines()
-                            if "registers" in ln or "spill" in ln or "smem" in ln]
-        log(f"build {r['name']}: {r['seconds']:.1f} s; " + " | ".join(ptxas[r["name"]]))
+                            if "registers" in ln or "spill" in ln or "smem" in ln
+                            or "entry function" in ln]
+        log(f"build {r['name']}: {r['seconds']:.1f} s; " + " | ".join(
+            ln for ln in ptxas[r["name"]] if "entry function" not in ln))
     log(f"build: {len(records)} kernel(s) in {secs:.1f} s (concurrently) with {version}")
     return {"nvcc": version, "build_s": secs, "ptxas": ptxas}
 
@@ -218,6 +221,32 @@ def ptxas_count(lines, pattern: str):
         if m:
             return int(m.group(1))
     return None
+
+
+def ptxas_by_entry(lines, key: str):
+    """(registers, spill-store bytes) of the first kernel whose mangled
+    name holds `key`, from the compiler's lines (an entry's "Compiling entry
+    function" line comes before its spill and register lines); (None, None)
+    for a kernel loaded from an earlier build."""
+    import re
+
+    regs = spill = None
+    inside = False
+    for ln in lines:
+        if "entry function" in ln:
+            if inside and regs is not None:
+                break
+            inside = key in ln
+            continue
+        if not inside:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            regs = int(m.group(1))
+    return regs, spill
 
 
 def bound(flops: float, nbytes: float):
@@ -834,11 +863,45 @@ def upsampler_flops(i: int, B: int, C: int, Cn: int, backward: bool, hw: int = 6
     return 2.0 * (dense + chain + dense + heads)
 
 
-def phase_upsampler_kernels(seed: int):
+# K5-bwd's launches, by the names the profiler gives them: the recompute
+# pass (the tile kernel in its backward mode), the chain pass, the X^T G
+# core's two
+K5B_PARTS = ("tile_kernel", "chain_kernel", "xtg_jobs_kernel", "xtg_reduce")
+# the scratch of one K5-bwd launch at B=2 before this design (13 launches
+# through a stash of 12 intermediates), GB, blocks 0..2
+K5B_SCRATCH_13_LAUNCHES_GB = (0.133, 0.260, 0.516)
+
+
+def device_launches_by_kernel(fn, calls: int):
+    """{kernel name: (device ms, launches) per call of fn} over `calls`
+    calls (torch.profiler, after one warm call); empty when the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            ms, n = out.get(e.key, (0.0, 0.0))
+            out[e.key] = (ms + us / 1e3 / calls, n + e.count / calls)
+    return out
+
+
+def phase_upsampler_kernels(seed: int, ptxas):
     """K5-fwd and K5-bwd at each Reso64 decoder block, at the serving merge
     pass (B=4; forward only), the training merge pass (B=2) and the bg pass
     (B=1), held against the plain versions and timed; each block's input is
-    the plain decoder's output of the block before, from a seeded featmap."""
+    the plain decoder's output of the block before, from a seeded featmap.
+    Logs K5-fwd's design per block and batch (tiles, the persistent grid,
+    tiles a block, the stream, registers and spills from the build log) and
+    K5-bwd's launches timed apart by torch.profiler at B=2."""
     import torch
 
     from nerf3dtalker_tpu_torch.ops.kernels import fused_upsampler as fu
@@ -855,6 +918,7 @@ def phase_upsampler_kernels(seed: int):
             net, rgb = fu.reference_block_fwd(net, rgb, wls[i], i, bf)
     recs = {"fwd": {}, "bwd": {}}
     worst = {"fwd": 0.0, "bwd": 0.0}
+    designs, parts, scratch_gb, fwd_device = {}, {}, {}, {}
     for B in (4, 2, 1):
         for i in range(3):
             C, Cn = fu.KERNEL_DIMS[i]
@@ -883,6 +947,33 @@ def phase_upsampler_kernels(seed: int):
             log(f"fused_upsampler_fwd block {i} ({C}->{Cn}) B={B}: {ms:.3f} ms (plain "
                 f"{plain_ms:.3f} ms), bound {bound_ms:.3f} ms by {bound_by}; outputs within "
                 f"{UPS_RTOL:.0e} of max|ref|")
+            if B == 4:   # the serving pass: the kernel's device time apart from the wrapper's
+                with torch.no_grad():
+                    by_name = device_launches_by_kernel(
+                        lambda: fu.phase_block_fwd(net, rgb, wl, i), calls=3)
+                if not any("tile_kernel" in n for n in by_name):
+                    raise AssertionError(f"fused_upsampler_fwd block {i}: torch.profiler recorded "
+                                         f"no device time of the kernel")
+                fwd_device[f"block{i}"] = round(sum(v[0] for n, v in by_name.items()
+                                                    if "tile_kernel" in n), 4)
+                log(f"fused_upsampler_fwd block {i} B=4 device ms (torch.profiler): "
+                    + json.dumps({n[:50]: round(v[0], 4) for n, v in by_name.items()}))
+            d = fu.fwd_design(B, 64, 64, i, C, Cn)
+            # the instantiation this launch takes: a pair of blocks a tile (SPLIT) or one
+            split = int(d["cluster_size"] == 2)
+            regs, spill = ptxas_by_entry(ptxas["fused_upsampler_fwd"],
+                                         f"tile_kernelILi{C}ELi{Cn}ELb0ELb{split}E")
+            pairs = d["grid_blocks"] // d["cluster_size"]
+            d.update(tiles_per_cluster=-(-d["tiles"] // pairs), registers=regs,
+                     spill_store_bytes=spill)
+            designs[f"B{B}_block{i}"] = d
+            log(f"fused_upsampler_fwd design block {i} B={B}: {d['tiles']} tiles of 8x8 on "
+                f"{d['grid_blocks']} persistent blocks ({d['resident_blocks']} resident, "
+                f"{d['tiles_per_cluster']} tiles a cluster at most), cluster size "
+                f"{d['cluster_size']}, "
+                f"{d['chunks_per_tile']} stream chunks a tile ({d['stream_bytes']:,} B), "
+                f"D2 chunks of {d['d2_channels_per_chunk']} channels, {d['smem_bytes']:,} B of "
+                f"shared memory, {regs} registers a thread, {spill} B spilled")
             if B == 4:
                 continue
             go = torch.Generator().manual_seed(seed + 10 * i + B)
@@ -919,11 +1010,32 @@ def phase_upsampler_kernels(seed: int):
             nbytes = tensor_bytes(net, gn, gr, *wl, kg[0], kg[1] if i else None, *kg[2])
             bound_ms, bound_by = bound(flops, nbytes)
             recs["bwd"][(B, i)] = (ms, plain_ms, bound_ms, flops, nbytes)
+            scratch_gb[f"B{B}_block{i}"] = fu.scratch_bytes(B, 64, 64, i, C, Cn) / 1e9
+            if B == 2:   # the training merge pass: the backward's launches apart
+                with torch.no_grad():
+                    by_name = device_launches_by_kernel(
+                        lambda: fu.phase_block_bwd(net, rgb, wl, i, gn, gr), calls=3)
+                if not by_name:
+                    raise AssertionError(f"fused_upsampler_bwd block {i}: torch.profiler recorded "
+                                         f"no device time, so its launches are not counted")
+                own = {part: [sum(v[k] for n, v in by_name.items() if part in n) for k in (0, 1)]
+                       for part in K5B_PARTS}
+                other = {n[:50]: round(v[0], 4) for n, v in by_name.items()
+                         if not any(part in n for part in K5B_PARTS)}
+                parts[f"block{i}"] = {part: round(v[0], 4) for part, v in own.items()}
+                n_launch = sum(v[1] for v in own.values())
+                log(f"fused_upsampler_bwd block {i} B=2 launches (torch.profiler, device ms per "
+                    f"backward): " + (json.dumps(parts[f"block{i}"]) + f"; {n_launch:g} K5 launches "
+                    f"a backward; the wrapper's PyTorch ops (stream gather, fills): "
+                    + json.dumps(other)))
+                if not 0 < n_launch <= 6:
+                    raise AssertionError(f"fused_upsampler_bwd block {i}: {n_launch} launches")
             log(f"fused_upsampler_bwd block {i} ({C}->{Cn}) B={B}: {ms:.3f} ms (plain "
                 f"{plain_ms:.3f} ms), bound {bound_ms:.3f} ms by {bound_by}; g_net rel L2 "
                 f"{rel:.2e}, g_rgb max_abs_err {rgb_err:.1e}, weights worst max_err/max|ref| "
                 f"{w_max:.2e}, worst rel L2 {w_l2:.2e}; scratch "
-                f"{fu.scratch_bytes(B, 64, 64, i, C, Cn) / 1e9:.3f} GB")
+                f"{scratch_gb[f'B{B}_block{i}']:.3f} GB"
+                + (f" (13-launch design: {K5B_SCRATCH_13_LAUNCHES_GB[i]:.3f} GB)" if B == 2 else ""))
 
     def entry(kind, B, name, line):
         blocks = [recs[kind][(B, i)] for i in range(3)]
@@ -942,7 +1054,11 @@ def phase_upsampler_kernels(seed: int):
                 "library_ms": None,  # no PyTorch call computes an upsampler block
                 "pass_batch": B, "ms_per_block_by_batch": by_shape}
 
-    return entry("fwd", 4, "fused_upsampler_fwd", 237), entry("bwd", 2, "fused_upsampler_bwd", 295)
+    k5f = entry("fwd", 4, "fused_upsampler_fwd", 237)
+    k5f.update(design=designs, device_ms_by_block_B4=fwd_device)
+    k5b = entry("bwd", 2, "fused_upsampler_bwd", 295)
+    k5b.update(parts_ms=parts or None, scratch_gb=scratch_gb)
+    return k5f, k5b
 
 
 def phase_serving_upsampler(seed: int, frames: int, workdir: str):
@@ -1515,7 +1631,7 @@ def main() -> int:
     train = phase_training(args.seed, workdir)
     parity = phase_train_parity(args.seed)
     step = phase_train_breakdown(args.seed)
-    k5f, k5b = phase_upsampler_kernels(args.seed)
+    k5f, k5b = phase_upsampler_kernels(args.seed, build_info["ptxas"])
     ups_serving = phase_serving_upsampler(args.seed, FRAMES, workdir)
     ups_grad = phase_gradient_upsampler(args.seed)
     phase_breakdown(args.seed)

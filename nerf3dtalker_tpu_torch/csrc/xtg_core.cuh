@@ -1,5 +1,6 @@
 // The staged X^T G core (bf16 in, f32 out) shared by the fused render
-// backward's weight-gradient pass (fused_render_bwd.cu) and the x^T g probe
+// backward's weight-gradient pass (fused_render_bwd.cu), the fused
+// upsampler backward's (fused_upsampler_bwd.cu) and the x^T g probe
 // (probe_xtg.cu), for Hopper (sm_90a).
 //
 // A job is dW [in, out] = X^T G over the point axis, X [P, in] and G
@@ -8,7 +9,11 @@
 // X^T g and db = sum g. The point axis is cut into blocks of BK points
 // ("rows"); `rows_per_batch` of them make one batch row, and each batch row
 // is cut into `splits_per_batch` splits of whole rows that never cross a
-// batch row. One thread block computes one output tile of one job over one
+// batch row. A job may read G with a row stride of its own (a narrow job's
+// g one column of a [P, 3] matrix) and may have `scale` times the launch's
+// points (split s of it is `scale` times split s of the launch's rows: the
+// fused upsampler's jobs at the finer level), and the reduction may write
+// an output with a stride (one column of a [in, 3] gradient). One thread block computes one output tile of one job over one
 // split into an f32 partial; `xtg_reduce` then adds the splits' partials in
 // split order (all splits, or the batch row's splits for a per-batch
 // output). Every sum is f32 in a fixed order: no atomics, the same bits on
@@ -211,10 +216,12 @@ __device__ __forceinline__ void ring(int count, Load load, Body body) {
 
 struct Job {
   const bf16* x;   // [P, in]
-  const bf16* g;   // [P, out] ([P] for a narrow job)
+  const bf16* g;   // [P, out] ([P] for a narrow job), row stride g_ld
   int in, out;     // out == 1: a narrow job
   int part;        // offset of dW within a split's partials
   int bias_part;   // offset of db within a split's partials, or -1
+  int g_ld;        // G's row stride in elements
+  int scale;       // points of the job per point of the launch's axis
 };
 
 struct Jobs {
@@ -257,6 +264,8 @@ xtg_jobs_kernel(Jobs jobs, float* __restrict__ partial, size_t split_stride, int
   long long first;
   int count;
   split_rows(blockIdx.y, rows_per_batch, splits_per_batch, first, count);
+  first *= jb.scale;
+  count *= jb.scale;
   float* out = partial + blockIdx.y * split_stride;
   const int tid = threadIdx.x;
 
@@ -265,9 +274,13 @@ xtg_jobs_kernel(Jobs jobs, float* __restrict__ partial, size_t split_stride, int
     const size_t p = (size_t)(first + s) * BK;
     stage_tile(xs, jb.x, p, jb.in, m0, mvalid);
     if (narrow) {
-      if (tid < BK / 8) cp_async16(xs + TILE + tid * 8, jb.g + p + tid * 8);
+      if (jb.g_ld == 1) {
+        if (tid < BK / 8) cp_async16(xs + TILE + tid * 8, jb.g + p + tid * 8);
+      } else if (tid < BK) {   // a strided column: plain loads, seen after the ring's barrier
+        xs[TILE + tid] = jb.g[(p + tid) * (size_t)jb.g_ld];
+      }
     } else {
-      stage_tile(xs + TILE, jb.g, p, jb.out, n0, nvalid);
+      stage_tile(xs + TILE, jb.g, p, jb.g_ld, n0, nvalid);
     }
   };
 
@@ -330,7 +343,8 @@ xtg_jobs_kernel(Jobs jobs, float* __restrict__ partial, size_t split_stride, int
 struct RJob {
   float* out;
   int part, count, per_batch;
-  int start;   // first global output index of this job
+  int start;    // first global output index of this job
+  int stride;   // of out
 };
 
 struct RJobs {
@@ -356,7 +370,7 @@ xtg_reduce(RJobs jobs, const float* __restrict__ partial, size_t split_stride, i
   }
   float acc = 0.0f;
   for (int s = s0; s < s1; ++s) acc += partial[s * split_stride + jb.part + i];
-  jb.out[local] = acc;
+  jb.out[(size_t)local * jb.stride] = acc;
 }
 
 // ---- host side: a plan of jobs, its scratch size and its launches
@@ -375,13 +389,18 @@ struct Plan {
   int part = 0;       // f32 values per split so far
   bool ok = true;
 
-  // dW = X^T G (in, out multiples of 64, or out == 1 for a narrow job),
-  // into dw; db = the column sums of G into db unless null. per_batch_w /
-  // per_batch_b: the output is [batches, ...], each batch row's own sum.
+  // dW = X^T G (in a multiple of 64 and out of 32, or out == 1 for a
+  // narrow job and in a multiple of 8), into dw; db = the column sums of G
+  // into db unless null. per_batch_w / per_batch_b: the output is
+  // [batches, ...], each batch row's own sum. g_ld: G's row stride (0: out);
+  // scale: the job's points per point of the launch's axis; stride: of dw
+  // and db (a narrow job's column of an [in, k] gradient).
   void add(const bf16* x, const bf16* g, int in, int out, float* dw, int per_batch_w, float* db,
-           int per_batch_b, int batches) {
-    if (jobs.n >= MAX_JOBS || rjobs.n + 2 > MAX_RJOBS || in <= 0 || in % 64 ||
-        (out != 1 && (out <= 0 || out % 64))) {
+           int per_batch_b, int batches, int g_ld = 0, int scale = 1, int stride = 1) {
+    const bool narrow = out == 1;
+    if (jobs.n >= MAX_JOBS || rjobs.n + 2 > MAX_RJOBS || in <= 0 || in % (narrow ? 8 : 64) ||
+        (!narrow && (out <= 0 || out % 32)) || scale < 1 || stride < 1 ||
+        (g_ld != 0 && g_ld < out) || (!narrow && g_ld % 8)) {
       ok = false;
       return;
     }
@@ -390,17 +409,19 @@ struct Plan {
     jb.g = g;
     jb.in = in;
     jb.out = out;
-    jb.part = take(dw, in * out, per_batch_w, batches);
-    jb.bias_part = db != nullptr ? take(db, out, per_batch_b, batches) : -1;
+    jb.g_ld = g_ld != 0 ? g_ld : out;
+    jb.scale = scale;
+    jb.part = take(dw, in * out, per_batch_w, batches, stride);
+    jb.bias_part = db != nullptr ? take(db, out, per_batch_b, batches, stride) : -1;
     jobs.tile_start[jobs.n + 1] = jobs.tile_start[jobs.n] + tiles_of(in, out);
     ++jobs.n;
   }
 
   // room for one output in each split's partials, at a multiple of 4
   // floats (the tiles are stored as float2)
-  int take(float* dst, int count, int per_batch, int batches) {
+  int take(float* dst, int count, int per_batch, int batches, int stride = 1) {
     RJob& r = rjobs.job[rjobs.n++];
-    r = RJob{dst, part, count, per_batch, rjobs.total};
+    r = RJob{dst, part, count, per_batch, rjobs.total, stride};
     rjobs.total += per_batch ? batches * count : count;
     const int at = part;
     part += (count + 3) / 4 * 4;

@@ -489,6 +489,93 @@ def test_upsampler_bwd_kernel_matches_plain_version(cuda, i):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_upsampler_kernels_are_deterministic(cuda, i):
+    """Two launches of K5-fwd and of K5-bwd give the same bits: every sum
+    is in a fixed order (no atomics; the X^T G core adds its splits in
+    order)."""
+    net, rgb, wl, gn, gr = _upsampler_block(cuda, i)
+    with torch.no_grad():
+        a = fu.phase_block_fwd(net, rgb, wl, i)
+        b = fu.phase_block_fwd(net, rgb, wl, i)
+        ga = fu.phase_block_bwd(net, rgb, wl, i, gn, gr)
+        gb = fu.phase_block_bwd(net, rgb, wl, i, gn, gr)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    for x, y in zip([ga[0], ga[1], *ga[2]], [gb[0], gb[1], *gb[2]]):
+        assert torch.equal(x, y)
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of fn launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.cuda
+def test_upsampler_block0_with_fewer_tiles_than_sms(cuda):
+    """Block 0 at B=1 on the Reso64 featmap grid (64 tiles for 132 SMs):
+    K5-fwd takes a cluster of two blocks a tile, so its grid covers twice
+    the tiles' SMs; both kernels against their plain versions; K5-bwd's
+    device launches counted by the profiler (at most 6 of its own)."""
+    net, rgb, wl, gn, gr = _upsampler_block(cuda, 0, B=1, Hc=64, Wc=64)
+    with torch.no_grad():
+        out = fu.phase_block_fwd(net, rgb, wl, 0)
+        ref = fu.reference_block_fwd(net, rgb, wl, 0, torch.bfloat16)
+        g_net, _, gw = fu.phase_block_bwd(net, rgb, wl, 0, gn, gr)
+        r_net, _, rw = fu.reference_block_bwd(net, rgb, wl, 0, gn, gr, torch.bfloat16)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("net_next", "rgb_next"), out, ref):
+        err, peak = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        assert err <= UPS_RTOL * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+    assert _rel_l2(g_net, r_net) <= UPS_GNET_REL_L2, f"g_net: rel L2 {_rel_l2(g_net, r_net):.3e}"
+    for k, (a, b) in enumerate(zip(gw, rw)):
+        err, peak = float((a - b).abs().max()), float(b.abs().max())
+        assert err <= UPS_BWD_RTOL * peak, f"weight {k}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+        assert _rel_l2(a, b) <= UPS_BWD_REL_L2, f"weight {k}: rel L2 {_rel_l2(a, b):.3e}"
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    fd = fu.fwd_design(1, 64, 64, 0, 256, 128)
+    assert fd["tiles"] == 64 < sms
+    assert fd["cluster_size"] == 2 and fd["grid_blocks"] == 128 <= fd["resident_blocks"]
+    assert fd["grid_blocks"] > sms // 2
+    with torch.no_grad():
+        names = _device_kernels(lambda: fu.phase_block_bwd(net, rgb, wl, 0, gn, gr))
+    own = [n for n in names if "at::" not in n]   # not PyTorch's (the stream gather, fills)
+    for part in ("tile_kernel", "chain_kernel", "xtg_jobs_kernel", "xtg_reduce"):
+        assert sum(part in n for n in own) == 1, (part, names)
+    assert len(own) <= 6, own
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_upsampler_designs_match_the_packed_streams(cuda, i):
+    """The kernels' compiled stream layouts (chunks a tile, bytes, channels
+    a D2 chunk) against the Python layouts the wrapper packs by, per block."""
+    C, Cn = fu.KERNEL_DIMS[i]
+
+    def nbytes(chunks):
+        return sum(2 * k * n for _, _, k, n, _ in fu.stream_layout(chunks, C, Cn))
+
+    fwd, rec = fu.tile_stream_chunks(C, Cn, False), fu.tile_stream_chunks(C, Cn, True)
+    chain = fu.chain_stream_chunks(C)
+    fd = fu.fwd_design(2, 64, 64, i, C, Cn)
+    bd = fu.bwd_design(2, 64, 64, i, C, Cn)
+    assert (fd["chunks_per_tile"], fd["stream_bytes"]) == (len(fwd), nbytes(fwd))
+    assert fd["d2_channels_per_chunk"] == fu.TILE_CFG[(C, Cn)]["KCH"]
+    assert (bd["recompute_chunks_per_tile"], bd["recompute_stream_bytes"]) == (len(rec), nbytes(rec))
+    assert (bd["chain_chunks_per_tile"], bd["chain_stream_bytes"]) == (len(chain), nbytes(chain))
+    assert fd["tiles"] == bd["tiles"] == 2 * (64 << i) ** 2 // 64
+
+
+@pytest.mark.cuda
 def test_upsampler_kernels_raise_on_card_at_other_widths(cuda):
     """Another width, a grid that is not whole tiles, or f32 compute raise
     on the card and launch nothing."""

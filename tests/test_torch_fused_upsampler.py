@@ -347,3 +347,193 @@ def test_headnerf_fused_upsampler_gate():
     assert not HeadNeRF(NeRFConfig(**TINY), device="cpu")._fusedup_ok
     odd = dict(TINY, pred_img_size=24)
     assert not HeadNeRF(NeRFConfig(**odd), use_fused_upsampler=True, device="cpu")._fusedup_ok
+
+
+# ------------------------------------------------- the kernels' weight streams
+#
+# CPU twins of the CUDA kernels' algorithms: each consumes its kernel's
+# pre-packed weight stream chunk by chunk, in order, undoing each chunk's
+# core-matrix layout (`fu.stream_layout`), and multiplies it into the
+# product the kernel multiplies it into; f32, at each block's real widths
+# on an 8 x 8 featmap grid. A chunk-order, layout or decomposition bug
+# shows here without a card. f32 sums in another order than the plain
+# version's: within 1e-5 of each output's own max|ref|.
+
+TWIN_RTOL = 1e-5
+
+
+def _block_weights(i, seed=11):
+    """Block i's weight list at the kernels' widths, f32 from a numpy seed
+    (nonzero biases)."""
+    C, Cn = fu.KERNEL_DIMS[i]
+    rng = np.random.default_rng(seed + i)
+    shapes = [(C, 2 * C), (2 * C,), (2 * C, 4 * C), (4 * C,), (C, Cn), (Cn,), (Cn, 3), (3,)]
+    if i == 0:
+        shapes += [(C, 3), (3,)]
+    return [torch.from_numpy((rng.standard_normal(s) / np.sqrt(s[0] if len(s) == 2 else 10))
+                             .astype(np.float32)) for s in shapes]
+
+
+def _block_inputs(i, B=1, hw=8, seed=12):
+    C, Cn = fu.KERNEL_DIMS[i]
+    P = 4 ** i
+    rng = np.random.default_rng(seed + i)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    return r(B, P, hw, hw, C), r(B, P, hw, hw, 3), r(B, 4 * P, hw, hw, Cn), r(B, 4 * P, hw, hw, 3)
+
+
+class _Stream:
+    """A packed stream read chunk by chunk in its layout's order."""
+
+    def __init__(self, kind, wl, C, Cn):
+        self.data, = fu.pack_streams((kind,), wl[0], wl[2], wl[4])
+        chunks = (fu.chain_stream_chunks(C) if kind == "chain"
+                  else fu.tile_stream_chunks(C, Cn, kind == "rec"))
+        self.layout = iter(fu.stream_layout(chunks, C, Cn))
+
+    def take(self, k, n):
+        """The next chunk as B [k, n], its core matrices undone."""
+        _, major, kk, nn, off = next(self.layout)
+        assert (kk, nn) == (k, n), ((kk, nn), (k, n))
+        flat = self.data[off:off + k * n]
+        if major == "n":   # [n / 8][k / 8][8 k][8 n]
+            return flat.reshape(n // 8, k // 8, 8, 8).permute(1, 2, 0, 3).reshape(k, n)
+        return flat.reshape(n // 8, k // 8, 8, 8).permute(1, 3, 0, 2).reshape(k, n)
+
+    def done(self):
+        return next(self.layout, None) is None
+
+
+def _lrelu(x):
+    return torch.where(x >= 0, x, 0.2 * x)
+
+
+def _twin_tile(net, wl, i, stream, grads=None):
+    """The tile kernel's products over the whole image, f32: D1 by passes,
+    D2 by channel chunks (shuffled and blurred alone, multiplied into
+    feat_layer's sum onto its bias). Returns (net', saved) and, with grads
+    = (g_net', g_rgb'), also g_af and g_up = g_af wf^T from the stream's
+    tail."""
+    C, Cn = fu.KERNEL_DIMS[i]
+    cfg = fu.TILE_CFG[(C, Cn)]
+    N1, KC1, KCH, KC2, GNB = (cfg[k] for k in ("N1", "KC1", "KCH", "KC2", "GNB"))
+    w1, b1, w2, b2, wf, bf, wr = wl[:7]
+    B, P, Hc, Wc, _ = net.shape
+    L = 1 << i
+    x = net.reshape(-1, C)
+    h1 = []
+    for p1 in range(2 * C // N1):
+        acc = b1[p1 * N1:(p1 + 1) * N1].expand(x.shape[0], N1)
+        for kc in range(C // KC1):
+            acc = acc + x[:, kc * KC1:(kc + 1) * KC1] @ stream.take(KC1, N1)
+        h1.append(_lrelu(acc))
+    h1 = torch.cat(h1, -1)
+    tidx = torch.as_tensor(pr.tile_index(C))
+    accf = bf.expand(4 * x.shape[0], Cn)
+    a2, up = torch.zeros(x.shape[0], 4 * C), []   # a2 in phase-major columns
+    for j in range(C // KCH):
+        cols = fu._w2_cols(C, j * KCH, KCH)
+        acc = b2[cols].expand(x.shape[0], 4 * KCH)
+        for s in range(2 * C // KC2):
+            acc = acc + h1[:, s * KC2:(s + 1) * KC2] @ stream.take(KC2, 4 * KCH)
+        a2[:, cols] = acc
+        z = _lrelu(acc) + x[:, tidx[cols]]
+        u = pr.phase_blur3(pr.phase_split(z.reshape(B, L, L, Hc, Wc, 4 * KCH), i), i + 1)
+        up.append(u.reshape(-1, KCH))
+        accf = accf + up[-1] @ stream.take(KCH, Cn)
+    nn = _lrelu(accf)
+    saved = dict(h1=h1, a2=a2, up=torch.cat(up, -1), af=accf, nn=nn)
+    if grads is not None:
+        gn, gr = (g.reshape(-1, g.shape[-1]) for g in grads)
+        g_af = torch.where(accf >= 0, 1.0, 0.2) * (gn + gr @ wr.t())
+        g_up = []
+        for pg in range(C // GNB):
+            acc = torch.zeros(g_af.shape[0], GNB)
+            for s in range(Cn // fu.GKC):
+                acc = acc + g_af[:, s * fu.GKC:(s + 1) * fu.GKC] @ stream.take(fu.GKC, GNB)
+            g_up.append(acc)
+        saved.update(g_af=g_af, g_up=torch.cat(g_up, -1))
+    return nn, saved
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_fwd_stream_twin_matches_reference_block_fwd(i):
+    """K5-fwd's stream (forward) consumed as the tile kernel consumes it,
+    with the rgb heads and path, against `reference_block_fwd` in f32."""
+    C, Cn = fu.KERNEL_DIMS[i]
+    wl = _block_weights(i)
+    net, rgb, _, _ = _block_inputs(i)
+    B, P, Hc, Wc, _ = net.shape
+    L = 1 << i
+    stream = _Stream("fwd", wl, C, Cn)
+    nn, _ = _twin_tile(net, wl, i, stream)
+    assert stream.done()
+    rgb_i = net.reshape(-1, C) @ wl[8] + wl[9] if i == 0 else rgb.reshape(-1, 3)
+    rgbup = pr.phase_blur3(pr.phase_bilinear2x(rgb_i.reshape(B, L, L, Hc, Wc, 3), i), i + 1)
+    rgb_next = rgbup.reshape(-1, 3) + nn @ wl[6] + wl[7]
+    ref = fu.reference_block_fwd(net, rgb, wl, i, torch.float32)
+    for name, a, b in (("net_next", nn, ref[0]), ("rgb_next", rgb_next, ref[1])):
+        err, peak = float((a.reshape(b.shape) - b).abs().max()), float(b.abs().max())
+        assert err <= TWIN_RTOL * peak, f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_bwd_plan_twin_matches_reference_block_bwd(i):
+    """K5-bwd's plan in f32: the recompute pass on its stream (the forward's
+    products, then g_af and g_up = g_af wf^T from the stream's tail); the
+    chain pass on its stream (channel chunks in the kernel's order: g_z,
+    g_a2, the tiled identity's transpose summed over the four chunks that
+    share its channels, g_a1 = slope(h1) g_a2 w2^T, g_net = g_a1 w1^T +
+    g_tile (+ g_rgb_0 wr_0^T)); the rgb path; the X^T G jobs (products
+    here) — against `reference_block_bwd`."""
+    C, Cn = fu.KERNEL_DIMS[i]
+    wl = _block_weights(i)
+    net, rgb, gn, gr = _block_inputs(i)
+    B, P, Hc, Wc, _ = net.shape
+    L = 1 << i
+    rec = _Stream("rec", wl, C, Cn)
+    _, s = _twin_tile(net, wl, i, rec, grads=(gn, gr))
+    assert rec.done()
+
+    chain = _Stream("chain", wl, C, Cn)
+    x = net.reshape(-1, C)
+    g_up = s["g_up"].reshape(B, 2 * L, 2 * L, Hc, Wc, C)
+    k2 = fu.CHAIN_KCH
+    acc1 = torch.zeros(x.shape[0], 2 * C)
+    g_tile = torch.zeros(x.shape[0], C)
+    g_a2 = torch.zeros(x.shape[0], 4 * C)
+    for ch in range(C // k2):
+        jj, m = divmod(ch, 4)
+        c0 = jj * k2 + m * (C // 4)
+        g_z = pr.phase_split_t(pr.blur3_t(g_up[..., c0:c0 + k2], i + 1)).reshape(-1, 4 * k2)
+        cols = fu._w2_cols(C, c0, k2)
+        ga2 = torch.where(s["a2"][:, cols] >= 0, 1.0, 0.2) * g_z
+        g_a2[:, cols] = ga2
+        for p in range(4):
+            acc1 = acc1 + ga2[:, p * k2:(p + 1) * k2] @ chain.take(16, 2 * C)
+        for p in range(4):
+            for cc in range(k2):
+                g_tile[:, 4 * (jj * k2 + cc) + p] += g_z[:, p * k2 + cc]
+    g_a1 = torch.where(s["h1"] >= 0, 1.0, 0.2) * acc1
+    acc2 = torch.zeros(x.shape[0], C)
+    for r in range(2 * C // 16):
+        acc2 = acc2 + g_a1[:, 16 * r:16 * r + 16] @ chain.take(16, C)
+    g_net = acc2 + g_tile
+    assert chain.done()
+    g_rgb = pr.bilinear2x_t(pr.blur3_t(gr.reshape(B, 2 * L, 2 * L, Hc, Wc, 3), i + 1), i)
+    g_rgb = g_rgb.reshape(-1, 3)
+    if i == 0:
+        g_net = g_net + g_rgb @ wl[8].t()
+    up, g_af, nn = s["up"], s["g_af"], s["nn"]
+    gw = [x.t() @ g_a1, g_a1.sum(0), s["h1"].t() @ g_a2, g_a2.sum(0), up.t() @ g_af,
+          g_af.sum(0), nn.t() @ gr.reshape(-1, 3), gr.reshape(-1, 3).sum(0)]
+    if i == 0:
+        gw += [x.t() @ g_rgb, g_rgb.sum(0)]
+        g_rgb = torch.zeros_like(g_rgb)
+    ref_net, ref_rgb, ref_w = fu.reference_block_bwd(net, rgb, wl, i, gn, gr, torch.float32)
+    checks = [("g_net", g_net, ref_net), ("g_rgb", g_rgb, ref_rgb)]
+    checks += [(f"weight {k}", a, b) for k, (a, b) in enumerate(zip(gw, ref_w))]
+    for name, a, b in checks:
+        err, peak = float((a.reshape(b.shape) - b).abs().max()), float(b.abs().max())
+        assert err <= TWIN_RTOL * max(peak, 1e-30), \
+            f"{name}: max abs err {err:.3e}, max|ref| {peak:.3e}"

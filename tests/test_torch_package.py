@@ -47,11 +47,12 @@ def test_kernel_source_is_in_the_package():
     for name in build.sources():
         assert (build.CSRC / f"{name}.cu").is_file()
         assert build.library_path(name).parent == build.BUILD_DIR
-    # the shared headers: the staged X^T G core (K2's weight gradients and
-    # the probe), the fused upsampler's common code, and the Hopper helpers
-    # of K1 and K2 (wgmma, mbarriers, bulk copies)
-    assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == ["fused_upsampler_common.cuh",
-                                                               "hopper.cuh", "xtg_core.cuh"]
+    # the shared headers: the staged X^T G core (the weight gradients of K2
+    # and K5-bwd, and the probe), the fused upsampler's common code and its
+    # tile kernel (K5-fwd, and K5-bwd's recompute pass), and the Hopper
+    # helpers (wgmma, mbarriers, bulk copies)
+    assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == [
+        "fused_upsampler_common.cuh", "fused_upsampler_tile.cuh", "hopper.cuh", "xtg_core.cuh"]
 
 
 def test_a_header_edit_rebuilds_every_kernel(tmp_path, monkeypatch):
