@@ -30,6 +30,15 @@ Phases (any failure exits non-zero):
                 against the plain (kernel-free, autograd) path; time the
                 steady-state step (ms/step, rays/s) and its parts, and
                 profile 3 steps (device time by kernel, idle share);
+  4b. subject — train the learnable `coherent_subject` at Reso64 (40 train,
+                8 val, 8 train-eval frames, B=2, VGG on, lr 2e-4, rollback
+                guard) for 10 epochs with validation every 5, through K1/K2:
+                every loss finite, the final TRAIN_PSNR at least 3 dB above
+                the untrained model's on the same frames, one K1 and one K2 a
+                step and one K1 a validation frame; then `cli animate --ckpt`
+                serves the trained checkpoint (unsharp enhancer, .mp4 with
+                the wav, or the PNG fallback) and its frames equal
+                `animate_sequence` on the trainer's own model;
   5. fused upsampler — serve 8 Reso64 frames through `animate_sequence`
                 with `HeadNeRF(use_fused=True, use_fused_upsampler=True)`
                 (K1 and K5-fwd launches counted, frames held against the
@@ -153,6 +162,13 @@ DEVICE = "cuda"        # of the training phases
 TRAIN_EPOCHS = 2        # cli train at Reso64: 8 synthetic frames, B=2 -> 4 steps an epoch,
 TRAIN_FRAMES = 8        # and 2 validation frames rendered one at a time after each epoch
 VAL_FRAMES = 2
+# the subject phase: coherent_subject at Reso64, B=2 -> 20 steps an epoch;
+# validation (8 val + 8 train-eval frames) after epochs 4 and 9
+SUBJECT_FRAMES, SUBJECT_VAL_FRAMES = 40, 8
+SUBJECT_EPOCHS, SUBJECT_VAL_EVERY = 10, 5
+# what 200 steps must gain on the train-eval frames over the untrained
+# model (the JAX run gained ~11 dB by then: TRAIN_r05.json, epoch 9)
+SUBJECT_GAIN_DB = 3.0
 
 
 def log(msg: str) -> None:
@@ -548,7 +564,7 @@ def phase_serving(seed: int, frames: int, workdir: str):
     cam_d = {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}
     model.use_fused = False
     plain = animate_sequence(model, np.zeros((1, 179), np.float32),
-                             np.zeros((1, 127), np.float32), styles[:chunk], cam_d, chunk)
+                             np.zeros((1, 127), np.float32), styles[:chunk], cam_d, chunk=chunk)
     diff = np.abs(plain - img[:chunk])
     log(f"serving vs plain render path, first chunk: max_abs {diff.max():.3e} "
         f"(tolerance {FRAME_MAX_ABS:.0e}), mean_abs {diff.mean():.3e} "
@@ -587,9 +603,9 @@ def phase_training(seed: int, workdir: str):
     by_path = {"train_steps": [0, 0], "validation": [0, 0]}
 
     def counted(method, path):
-        def run(self, *args):
+        def run(self, *args, **kwargs):
             before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
-            out = method(self, *args)
+            out = method(self, *args, **kwargs)
             by_path[path][0] += fr.fused_render_fwd.launches - before[0]
             by_path[path][1] += fr.fused_render_bwd.launches - before[1]
             return out
@@ -647,6 +663,133 @@ def phase_training(seed: int, workdir: str):
     if still:
         raise AssertionError(f"parameters that did not move: {still}")
     return {"k1_train": k1_train, "k1_validation": k1_val, "k2": k2_train, "steps": steps}
+
+
+def phase_subject(seed: int, workdir: str):
+    """Train the learnable subject through the trainer (K1/K2), then serve
+    its checkpoint through `cli animate --ckpt`."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.config import TrainConfig
+    from nerf3dtalker_tpu_torch.data.dataset import coherent_subject
+    from nerf3dtalker_tpu_torch.data.mel import per_frame_mel_chunks, read_wav_mono
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.train.animate import animate_sequence, styles_from_mels
+    from nerf3dtalker_tpu_torch.train.trainer import Trainer
+    from nerf3dtalker_tpu_torch.utils import video
+    from nerf3dtalker_tpu_torch.utils.camera import base_cam
+
+    t_phase = time.perf_counter()
+    ckpt_dir = os.path.join(workdir, "subject_ckpt")
+    log_dir = os.path.join(workdir, "subject_logs")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    cfg = train_config()
+    train = coherent_subject(cfg, SUBJECT_FRAMES, t0=0)
+    val = coherent_subject(cfg, SUBJECT_VAL_FRAMES, t0=SUBJECT_FRAMES)
+    train_eval = coherent_subject(cfg, SUBJECT_VAL_FRAMES, t0=0)
+    tc = TrainConfig(batch_size=2, epochs=SUBJECT_EPOCHS, lr=2e-4, seed=seed,
+                     ckpt_dir=ckpt_dir, log_dir=log_dir, guard_policy="rollback",
+                     val_every=SUBJECT_VAL_EVERY)
+    t = Trainer(cfg, tc, train, val, device=DEVICE, train_eval_data=train_eval)
+    t.init()
+    untrained = t.validate()   # the train-eval frames' TRAIN_PSNR before any step
+
+    fr.fused_render_fwd.launches = 0
+    fr.fused_render_bwd.launches = 0
+    t.kernel_launches = {"train_steps": [0, 0], "validation": [0, 0]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = t.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k1, k2 = fr.fused_render_fwd.launches, fr.fused_render_bwd.launches
+    (k1_train, k2_train), (k1_val, k2_val) = (t.kernel_launches["train_steps"],
+                                              t.kernel_launches["validation"])
+    steps = SUBJECT_EPOCHS * (SUBJECT_FRAMES // 2)
+    validated = [h for h in hist if "TRAIN_PSNR" in h]
+    val_renders = 2 * SUBJECT_VAL_FRAMES * len(validated)
+    ms_step = 1e3 * statistics.median(h["sec_per_step"] for h in hist)
+    final = validated[-1] if validated else {}
+    nan = float("nan")
+    log(f"subject: {SUBJECT_EPOCHS} epochs, {t.state.step} steps in {train_s:.1f} s, step "
+        f"{ms_step:.2f} ms (median of the epochs); TRAIN_PSNR untrained "
+        f"{untrained['TRAIN_PSNR']:.3f} -> {final.get('TRAIN_PSNR', nan):.3f} dB "
+        f"(TRAIN_SSIM {final.get('TRAIN_SSIM', nan):.4f}), val PSNR "
+        + ", ".join(f"epoch {h['epoch']} {h['PSNR']:.3f}" for h in validated)
+        + f"; launches in the train steps K1 {k1_train}, K2 {k2_train} (expected {steps} "
+        f"each), in validation K1 {k1_val}, K2 {k2_val} (expected {val_renders}, 0)")
+    for h in hist:
+        losses = [h[k] for k in ("bg_loss", "head_loss", "nonhead_loss", "vgg", "total_loss")]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"subject epoch {h['epoch']}: non-finite loss {h}")
+    if [h["epoch"] for h in validated] != list(range(SUBJECT_VAL_EVERY - 1, SUBJECT_EPOCHS,
+                                                     SUBJECT_VAL_EVERY)):
+        raise AssertionError(f"subject: validated epochs {[h['epoch'] for h in validated]}")
+    gain = final["TRAIN_PSNR"] - untrained["TRAIN_PSNR"]
+    if not gain >= SUBJECT_GAIN_DB:
+        raise AssertionError(f"subject: TRAIN_PSNR gained {gain:.3f} dB over the untrained "
+                             f"model, expected >= {SUBJECT_GAIN_DB}")
+    if (k1_train, k2_train, k1_val, k2_val) != (steps, steps, val_renders, 0) \
+            or (k1, k2) != (k1_train + k1_val, k2_train + k2_val):
+        raise AssertionError(f"subject launches: train steps K1 {k1_train} K2 {k2_train}, "
+                             f"validation K1 {k1_val} K2 {k2_val}, whole run K1 {k1} K2 {k2}")
+
+    # serve the trained checkpoint: the frames that reach write_video
+    chunk = 4
+    wav = os.path.join(workdir, "subject.wav")
+    out = os.path.join(workdir, "subject.mp4")
+    write_wav(wav, seed + 1, FRAMES)
+    shutil.rmtree(os.path.splitext(out)[0] + "_frames", ignore_errors=True)
+    if os.path.exists(out):
+        os.remove(out)
+    served = []
+    write_video = video.write_video
+    video.write_video = lambda frames, *a, **kw: (served.append(frames),
+                                                  write_video(frames, *a, **kw))
+    fr.fused_render_fwd.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rec = cli.main(["animate", "--wav", wav, "--ckpt", ckpt_dir, "--enhancer", "unsharp",
+                        "--chunk", str(chunk), "--device", DEVICE, "--out", out])
+        serve_s = time.perf_counter() - t0
+    finally:
+        video.write_video = write_video
+    k1_serve = fr.fused_render_fwd.launches
+    img = served[0]
+    styles = styles_from_mels(t.state.audio.eval(), per_frame_mel_chunks(*read_wav_mono(wav)))
+    cam = base_cam(cfg.featmap_size)
+    own = video.unsharp_enhancer(animate_sequence(
+        t.state.nerf.eval(), np.zeros((1, cfg.shape_code_dims), np.float32),
+        np.zeros((1, cfg.appea_code_dims), np.float32), styles,
+        {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}, chunk=chunk))
+    diff = float(np.abs(own - img).max())
+    written = os.path.exists(out)
+    fallback = os.path.splitext(out)[0] + "_frames"
+    log(f"subject: cli animate --ckpt: {rec['frames']} frames in {serve_s:.1f} s (whole cli "
+        f"call), K1 launches {k1_serve} (expected {-(-FRAMES // chunk)}); frames vs "
+        f"animate_sequence on the trainer's model, max_abs {diff:.3e} (expected 0); "
+        + (f"wrote {out} ({os.path.getsize(out)} bytes)" if written else
+           f"no ffmpeg: notice — the PNG fallback went to {fallback}"))
+    if img.shape != (FRAMES, cfg.pred_img_size, cfg.pred_img_size, 3) \
+            or not np.isfinite(img).all() or img.min() < 0 or img.max() > 1:
+        raise AssertionError(f"subject frames: shape {img.shape}, range "
+                             f"[{img.min()}, {img.max()}]")
+    if diff != 0.0 or k1_serve != -(-FRAMES // chunk):
+        raise AssertionError("cli animate --ckpt disagrees with the trainer's model")
+    if not written and len([f for f in os.listdir(fallback) if f.endswith(".png")]) != FRAMES:
+        raise AssertionError(f"neither {out} nor its PNG fallback was written")
+    phase_s = time.perf_counter() - t_phase
+    log(f"subject: phase {phase_s:.1f} s")
+    return {"steps": steps, "ms_per_step": ms_step, "train_s": train_s, "phase_s": phase_s,
+            "untrained_psnr": untrained["TRAIN_PSNR"], "train_psnr": final["TRAIN_PSNR"],
+            "train_ssim": final["TRAIN_SSIM"], "val_psnr": [h["PSNR"] for h in validated],
+            "mp4": written, "k1_train": k1_train, "k2": k2_train, "k1_validation": k1_val,
+            "k1_animate": k1_serve}
 
 
 def _train_setup(seed: int, use_fused: bool = True):
@@ -1084,12 +1227,12 @@ def phase_serving_upsampler(seed: int, frames: int, workdir: str):
     cam = base_cam(64)
     cam_d = {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}
     codes = (np.zeros((1, 179), np.float32), np.zeros((1, 127), np.float32))
-    animate_sequence(model, *codes, styles[:chunk], cam_d, chunk)      # warm-up: one chunk
+    animate_sequence(model, *codes, styles[:chunk], cam_d, chunk=chunk)      # warm-up: one chunk
     fr.fused_render_fwd.launches = 0
     fu.phase_block_fwd.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img = animate_sequence(model, *codes, styles, cam_d, chunk)
+    img = animate_sequence(model, *codes, styles, cam_d, chunk=chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k5 = fr.fused_render_fwd.launches, fu.phase_block_fwd.launches
@@ -1103,7 +1246,7 @@ def phase_serving_upsampler(seed: int, frames: int, workdir: str):
     if img.shape != (frames, 512, 512, 3) or not np.isfinite(img).all():
         raise AssertionError(f"bad frames: shape {img.shape}")
     model.use_fused = model.use_fused_upsampler = False
-    plain = animate_sequence(model, *codes, styles, cam_d, chunk)
+    plain = animate_sequence(model, *codes, styles, cam_d, chunk=chunk)
     diff = np.abs(plain - img)
     log(f"serving, fused upsampler vs plain render path, {frames} frames: max_abs "
         f"{diff.max():.3e} (tolerance {FRAME_MAX_ABS:.0e}), mean_abs {diff.mean():.3e} "
@@ -1631,6 +1774,7 @@ def main() -> int:
     train = phase_training(args.seed, workdir)
     parity = phase_train_parity(args.seed)
     step = phase_train_breakdown(args.seed)
+    subject = phase_subject(args.seed, workdir)
     k5f, k5b = phase_upsampler_kernels(args.seed, build_info["ptxas"])
     ups_serving = phase_serving_upsampler(args.seed, FRAMES, workdir)
     ups_grad = phase_gradient_upsampler(args.seed)
@@ -1651,13 +1795,18 @@ def main() -> int:
     # launches on the main paths, each path's counts set to 0 just before it
     # and read just after: K1 in serving, in training (train steps, then
     # validation renders), in serving and in the gradient with the fused
-    # upsampler; K2 in training and in that gradient; K5 on the last two
+    # upsampler, in the subject's training and its serving; K2 in training,
+    # in that gradient and in the subject's training; K5 on the fused two
     k1["launches_by_path"] = {"serving": serving_launches, "train_steps": train["k1_train"],
                               "validation": train["k1_validation"],
                               "serving_fused_upsampler": ups_serving["k1"],
-                              "gradient_fused_upsampler": ups_grad["k1"]}
+                              "gradient_fused_upsampler": ups_grad["k1"],
+                              "subject_train_steps": subject["k1_train"],
+                              "subject_validation": subject["k1_validation"],
+                              "subject_animate": subject["k1_animate"]}
     k2["launches_by_path"] = {"train_steps": train["k2"],
-                              "gradient_fused_upsampler": ups_grad["k2"]}
+                              "gradient_fused_upsampler": ups_grad["k2"],
+                              "subject_train_steps": subject["k2"]}
     k5f["launches_by_path"] = {"serving_fused_upsampler": ups_serving["k5"],
                                "gradient_fused_upsampler": ups_grad["k5f"]}
     k5b["launches_by_path"] = {"gradient_fused_upsampler": ups_grad["k5b"]}
@@ -1667,6 +1816,7 @@ def main() -> int:
                     "fused_upsampler": {"serving": ups_serving, "gradient": ups_grad},
                     "training": {"steps": train["steps"], "ms_per_step": step["ms_per_step"],
                                  "rays_per_s": step["rays_per_s"], "parity": parity},
+                    "subject": subject,
                     "mesh": {"epoch_2x2": mesh_train, "parity": mesh_parity, "nccl_1x1": nccl},
                     "build_s": build_info["build_s"], "nvcc": build_info["nvcc"]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

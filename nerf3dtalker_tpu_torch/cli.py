@@ -3,9 +3,15 @@
 
   train   — train HeadNeRF + Audio2Style on a frame dataset (.npz of the
             `data.dataset` schema, or a synthetic one), validate with SSIM /
-            PSNR, checkpoint under --ckpt-dir, print the last epoch's record
+            PSNR (LPIPS with --lpips-weights), checkpoint under --ckpt-dir,
+            print the last epoch's record; --resume rebuilds the run from
+            its newest checkpoint, with the flags set on this command line
+            over the checkpoint's config
   animate — wav -> per-frame mel chunks -> Audio2Style -> chunked HeadNeRF
-            render -> frames saved as .npy
+            render (seeded weights, a flax --params npz, or the newest
+            checkpoint of `train` with --ckpt) -> optional enhancer ->
+            frames as an .mp4 with the wav muxed in (ffmpeg; PNGs without
+            it) or as .npy
 
 Runs on `cuda` unless `--device cpu` is given. On the GPU HeadNeRF computes
 in bf16 through the fused render kernels; on the CPU in f32 through the
@@ -40,12 +46,14 @@ def _codes_from_latents(path):
     return shape, appea
 
 
-def build_models(cfg, seed: int, device, params: str = ""):
+def build_models(cfg, seed: int, device, params: str = "", state=None):
     """The serving models on `device`: HeadNeRF in bf16 through the fused
     kernel on the GPU (f32, plain path on the CPU) and Audio2Style. Weights
     come from `params`, the `/`-joined .npz of `{"nerf": ..., "audio": ...}`
-    flax variables that `save_pytree_npz` writes; without it they are
-    initialized from `seed` (NeRF) and 1 (audio), as the JAX CLI does."""
+    flax variables that `save_pytree_npz` writes, or from `state`, a
+    checkpoint payload of the port's trainer (`nerf` and `audio` state
+    dicts); without either they are initialized from `seed` (NeRF) and 1
+    (audio), as the JAX CLI does."""
     import torch
 
     from nerf3dtalker_tpu_torch.models.audio import Audio2Style
@@ -64,21 +72,44 @@ def build_models(cfg, seed: int, device, params: str = ""):
                              f"got {sorted(tree)}")
         bridge.load_into(model, bridge.headnerf_state_dict(tree["nerf"]))
         bridge.load_into(a2s, bridge.audio2style_state_dict(tree["audio"]))
+    if state is not None:
+        model.load_state_dict(state["nerf"])
+        a2s.load_state_dict(state["audio"])
     return model.eval(), a2s.eval()
+
+
+def _nerf_config(args, state=None):
+    """The served model's config: a checkpoint's embedded NeRFConfig (else
+    the defaults) with --featmap-size / --img-size over it where given."""
+    import dataclasses
+
+    from nerf3dtalker_tpu_torch.config import NeRFConfig
+
+    base = {}
+    if state is not None:
+        fields = {f.name for f in dataclasses.fields(NeRFConfig)}
+        base = {k: v for k, v in state["config"]["nerf"].items() if k in fields}
+    cfg = NeRFConfig(**base)
+    return dataclasses.replace(
+        cfg, featmap_size=args.featmap_size or cfg.featmap_size,
+        pred_img_size=args.img_size or cfg.pred_img_size)
 
 
 def cmd_animate(args) -> dict:
     import numpy as np
 
-    from nerf3dtalker_tpu_torch.config import NeRFConfig
     from nerf3dtalker_tpu_torch.data.mel import per_frame_mel_chunks, read_wav_mono
     from nerf3dtalker_tpu_torch.train.animate import animate_sequence, styles_from_mels
+    from nerf3dtalker_tpu_torch.utils import video
     from nerf3dtalker_tpu_torch.utils.camera import base_cam
+    from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint
     from nerf3dtalker_tpu_torch.utils.device import resolve_device
 
-    out = args.out or "talking_head.npy"
-    if not out.endswith(".npy"):
-        raise SystemExit("--out must be a .npy file (mp4 muxing is not ported yet)")
+    if args.ckpt and args.params:
+        raise SystemExit("--ckpt and --params both give the weights: pass one of them")
+    if args.enhancer == "gfpgan":
+        raise SystemExit("--enhancer gfpgan is not ported yet (models/gfpgan.py)")
+    out = args.out or "talking_head.mp4"
     dev = resolve_device(args.device)
     pcm, sr = read_wav_mono(args.wav)
     mels = per_frame_mel_chunks(pcm, sr=sr, fps=args.fps)
@@ -86,8 +117,10 @@ def cmd_animate(args) -> dict:
         mels = mels[: args.max_frames]
     T = len(mels)
 
-    cfg = NeRFConfig(featmap_size=args.featmap_size, pred_img_size=args.img_size)
-    model, a2s = build_models(cfg, args.seed, dev, args.params)
+    state = load_checkpoint(args.ckpt, map_location="cpu") if args.ckpt else None
+    cfg = _nerf_config(args, state)
+    model, a2s = build_models(cfg, args.seed, dev, args.params, state)
+    del state
     shape = np.zeros((1, cfg.shape_code_dims), np.float32)
     appea = np.zeros((1, cfg.appea_code_dims), np.float32)
     if args.latents:
@@ -97,8 +130,15 @@ def cmd_animate(args) -> dict:
 
     styles = styles_from_mels(a2s, mels)
     frames = animate_sequence(model, shape, appea, styles, cam_d, chunk=args.chunk)
-    np.save(out, frames)
-    rec = {"frames": T, "size": list(frames.shape[1:3]), "device": str(dev), "out": out}
+    rec = {"frames": T, "size": list(frames.shape[1:3]), "device": str(dev)}
+    if args.enhancer == "unsharp":
+        frames = video.enhance_frames(frames, video.unsharp_enhancer)
+        rec["enhancer"] = args.enhancer
+    if out.endswith(".npy"):
+        np.save(out, frames)
+    else:
+        video.write_video(frames, out, fps=args.fps, audio_path=args.wav)
+    rec["out"] = out
     print(json.dumps(rec))
     return rec
 
@@ -114,14 +154,11 @@ def _train(args, mesh=None) -> dict:
     from nerf3dtalker_tpu_torch.utils.camera import ray_grid
     from nerf3dtalker_tpu_torch.utils.checkpoints import has_checkpoint
     from nerf3dtalker_tpu_torch.utils.device import resolve_device
+    from nerf3dtalker_tpu_torch.utils.metrics import load_lpips_alex
 
     dev = resolve_device(args.device) if mesh is None else mesh.device
     say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     cfg = NeRFConfig(featmap_size=args.featmap_size, pred_img_size=args.img_size)
-    tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
-                     ckpt_dir=args.ckpt_dir, use_vgg_loss=not args.no_vgg,
-                     vgg_weights=args.vgg_weights, seed=args.seed, log_dir=args.log_dir,
-                     guard_policy=args.guard_policy)
     if args.data:
         with np.load(args.data) as z:
             arrays = {k: z[k] for k in z.files}
@@ -134,14 +171,32 @@ def _train(args, mesh=None) -> dict:
         train = synthetic_dataset(cfg, num_frames=8)
         val = synthetic_dataset(cfg, num_frames=2, seed=1)
 
-    t = Trainer(cfg, tc, train, val, device=dev, mesh=mesh)
-    t.init()
-    if args.resume:
-        if has_checkpoint(args.ckpt_dir):
-            t.resume(args.ckpt_dir)
-            say(f"resumed from step {t.state.step} (epoch {t.start_epoch})")
-        else:
+    lpips = load_lpips_alex(args.lpips_weights, device=dev) if args.lpips_weights else None
+    if args.resume and has_checkpoint(args.ckpt_dir):
+        # the configs come from the checkpoint; a training flag set on this
+        # command line (not left at its parser default) goes over them
+        overrides = {"epochs": args.epochs}
+        for dest in args.explicit:
+            if dest in RESUME_FIELDS:
+                overrides[RESUME_FIELDS[dest]] = getattr(args, dest)
+        if "no_vgg" in args.explicit:
+            overrides["use_vgg_loss"] = False
+        forwarded = sorted(k for k in overrides if k != "epochs")
+        if forwarded:
+            say(f"--resume: flags set on the command line over the checkpoint's config: "
+                f"{forwarded}")
+        t = Trainer.from_checkpoint(args.ckpt_dir, train, val, device=dev, mesh=mesh,
+                                    lpips=lpips, **overrides)
+        say(f"resumed from step {t.state.step} (epoch {t.start_epoch})")
+    else:
+        if args.resume:
             say(f"--resume: no checkpoint under {args.ckpt_dir}; starting fresh")
+        tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
+                         ckpt_dir=args.ckpt_dir, use_vgg_loss=not args.no_vgg,
+                         vgg_weights=args.vgg_weights, seed=args.seed, log_dir=args.log_dir,
+                         guard_policy=args.guard_policy)
+        t = Trainer(cfg, tc, train, val, device=dev, mesh=mesh, lpips=lpips)
+        t.init()
     hist = t.train(args.epochs)
     rec = hist[-1] if hist else {
         "epochs_done": t.start_epoch, "step": t.state.step,
@@ -149,6 +204,12 @@ def _train(args, mesh=None) -> dict:
     if mesh is not None:
         rec = {**rec, "mesh": {"data": mesh.data, "rays": mesh.rays, **t.mesh_report()}}
     return rec
+
+
+# `cli train` flags that --resume lays over the checkpoint's TrainConfig when
+# they are set on the command line (JAX cli.py:126-153): flag dest -> field
+RESUME_FIELDS = {"batch_size": "batch_size", "lr": "lr", "vgg_weights": "vgg_weights",
+                 "seed": "seed", "log_dir": "log_dir", "guard_policy": "guard_policy"}
 
 
 def _train_rank(local_rank: int, world: int, args, init_method: str, result_path: str) -> None:
@@ -253,25 +314,37 @@ def main(argv=None):
                     help="ranks over the frames of a batch (the mesh's data axis)")
     pt.add_argument("--ray-parallel", type=int, default=1,
                     help="ranks over the rays of a frame (the mesh's rays axis)")
+    pt.add_argument("--lpips-weights", default="",
+                    help="LPIPS-alex .npz (the JAX package's save_lpips_alex layout) to "
+                    "report LPIPS in validation")
     pt.set_defaults(fn=cmd_train)
 
-    pa = sub.add_parser("animate", help="wav -> talking-head frames (.npy)")
-    pa.add_argument("--featmap-size", type=int, default=32)
-    pa.add_argument("--img-size", type=int, default=256)
+    pa = sub.add_parser("animate", help="wav -> talking-head video (.mp4) or frames (.npy)")
+    pa.add_argument("--featmap-size", type=int, default=None,
+                    help="default: the --ckpt's config, else 32")
+    pa.add_argument("--img-size", type=int, default=None,
+                    help="default: the --ckpt's config, else 256")
     pa.add_argument("--seed", type=int, default=0,
-                    help="seed of the NeRF weights when --params gives none")
+                    help="seed of the NeRF weights when --params and --ckpt give none")
     pa.add_argument("--wav", required=True)
     pa.add_argument("--latents", help="fitted.npz from `fit`")
     pa.add_argument("--params", help="flax variables as a '/'-joined .npz "
                     "(keys nerf/params/... and audio/params/...)")
+    pa.add_argument("--ckpt", help="checkpoint directory of `train` (its newest checkpoint)")
     pa.add_argument("--fps", type=int, default=25)
     pa.add_argument("--chunk", type=int, default=4)
     pa.add_argument("--max-frames", type=int, default=0)
     pa.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    pa.add_argument("--out", help="frames [T, H, W, 3] in [0, 1] as .npy")
+    pa.add_argument("--enhancer", default="none", choices=["none", "unsharp", "gfpgan"],
+                    help="post-render enhancer (gfpgan is not ported yet)")
+    pa.add_argument("--out", help=".mp4 (default talking_head.mp4; ffmpeg, the wav muxed "
+                    "in) or .npy (frames [T, H, W, 3] in [0, 1])")
     pa.set_defaults(fn=cmd_animate)
 
     args = p.parse_args(argv)
+    # the flags set on the command line, not left at their parser default
+    args.explicit = sorted(a.dest for a in sub.choices[args.cmd]._actions
+                           if a.dest != "help" and getattr(args, a.dest) != a.default)
     return args.fn(args)
 
 

@@ -134,7 +134,7 @@ class TrainConfig:
     use_tensorboard, trace_dir, trace_steps) are left out, and so are the
     switches whose one value the port always takes: bf16 compute on the GPU,
     precomputed GT VGG planes, the device cache (`train/trainer.py`), the
-    per-epoch metrics log, validation every epoch."""
+    per-epoch metrics log and guard_max_bad (10)."""
 
     # frame batch per optimizer step (the reference trains B=1; the JAX
     # package's default is 2)
@@ -155,3 +155,5 @@ class TrainConfig:
     # params), "rollback" to the last checkpoint, or "abort" after a run of
     # bad steps (utils/guards.py StepGuard)
     guard_policy: str = "warn"
+    # validate and checkpoint every k-th epoch and after the last one
+    val_every: int = 1

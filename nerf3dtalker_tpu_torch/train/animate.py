@@ -2,7 +2,9 @@
 `nerf3dtalker_tpu/train/animate.py`).
 
 A fitted subject (latent codes + camera) is re-rendered once per audio
-frame with the per-frame 64-d audio style driving the NeRF. Frames render
+frame with the per-frame 64-d audio style (and optionally a per-frame
+expression coefficient, e.g. SadTalker's audio2exp output) driving the
+NeRF. Frames render
 in fixed-size chunks through the batch dimension of `HeadNeRF`, so T frames
 cost ceil(T/chunk) kernel launches; the last chunk is padded to the same
 shape.
@@ -10,7 +12,7 @@ shape.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -31,10 +33,12 @@ def animate_sequence(
     appea_code: np.ndarray,       # [1, 127]
     audio_styles: np.ndarray,     # [T, 64] per-frame style vectors
     cam: Dict[str, np.ndarray],   # Rmat [1,3,3], Tvec [1,3], inv_inmat [1,3,3]
+    expr_seq: Optional[np.ndarray] = None,   # [T, e] override of the expr slice
     chunk: int = 4,
 ) -> np.ndarray:
     """Render T frames on the model's device; returns [T, H, W, 3] float32
-    in [0, 1]."""
+    in [0, 1]. Row t of `expr_seq` overwrites frame t's
+    shape_code[iden_code_dims : iden_code_dims + e]."""
     dev = _device_of(model)
 
     def tile(a, *reps):
@@ -46,13 +50,19 @@ def animate_sequence(
     Rmat, Tvec = tile(cam["Rmat"], chunk, 1, 1), tile(cam["Tvec"], chunk, 1)
     inv_inmat = tile(cam["inv_inmat"], chunk, 1, 1)
     shape_b, appea_b = tile(shape_code, chunk, 1), tile(appea_code, chunk, 1)
+    iden = model.cfg.iden_code_dims
     styles = torch.as_tensor(np.asarray(audio_styles, np.float32), device=dev)
     frames = []
     for start in range(0, T, chunk):
         n = min(chunk, T - start)
         aud = torch.zeros((chunk, styles.shape[1]), dtype=torch.float32, device=dev)
         aud[:n] = styles[start:start + n]
-        out = model(xy_b, shape_b, appea_b, aud, Rmat, Tvec, inv_inmat)
+        codes = shape_b
+        if expr_seq is not None:
+            e = torch.as_tensor(np.asarray(expr_seq[start:start + n], np.float32), device=dev)
+            codes = shape_b.clone()
+            codes[:n, iden:iden + e.shape[1]] = e
+        out = model(xy_b, codes, appea_b, aud, Rmat, Tvec, inv_inmat)
         frames.append(torch.clamp(out["merge_img"][:n], 0.0, 1.0).float().cpu())
     return torch.cat(frames).numpy()
 

@@ -146,11 +146,13 @@ def build_step_fns(
     device: Optional[Union[str, torch.device]] = None,
     use_fused: Optional[bool] = None,
     mesh: Optional[Mesh] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> StepFns:
     """Step functions on `device` (default `cuda`), or on the device of this
     rank of `mesh`. `use_fused` defaults to the GPU, and is always on under a
-    mesh (K4: the kernels on the GPU, their plain versions on the CPU); the
-    compute dtype is bf16 on the GPU and f32 on the CPU.
+    mesh (K4: the kernels on the GPU, their plain versions on the CPU);
+    `compute_dtype` defaults to bf16 on the GPU (the kernels' only one) and
+    f32 on the CPU.
 
     Batch layout (tensors on the device): mels [B, 80, 16], gt_rgb
     [B, H, W, 3], head_mask [B, H, W, 1], iden/expr/text/illu, audio_exp
@@ -162,7 +164,7 @@ def build_step_fns(
     on_gpu = dev.type == "cuda"
     if use_fused is None:
         use_fused = on_gpu or mesh is not None
-    cdt = torch.bfloat16 if on_gpu else torch.float32
+    cdt = compute_dtype or (torch.bfloat16 if on_gpu else torch.float32)
     vgg_cdt = cdt if cdt == torch.bfloat16 else None
     bg_value = 1.0 if nerf_cfg.bg_type == "white" else 0.0
     sched = make_schedule(train_cfg, steps_per_epoch)
