@@ -39,6 +39,23 @@ Phases (any failure exits non-zero):
                 serves the trained checkpoint (unsharp enhancer, .mp4 with
                 the wav, or the PNG fallback) and its frames equal
                 `animate_sequence` on the trainer's own model;
+  4c. fit    — the subject trained again as in 4b at TrainConfig seed
+                --seed + 1 (at seed 0 its NeRF goes transparent, which 4b
+                records as its opacity, and a transparent NeRF gives a fit
+                no gradient); its checkpoint fitted to one image (`cli
+                fit`): its own val frame 0 rendered with that frame's codes
+                at a known camera offset, iden then off by 0.1 in the base
+                codes; first one iteration's gradients on each FitVar
+                through K1/K2 (K2 with input gradients) against the plain
+                path, and K2's input gradients against its plain version,
+                carried to the camera; then 300 iterations on the card
+                (iters + 1 K1 and iters K2 launches, each K2 with input
+                gradients, no K5; the head loss must fall; ms an iteration;
+                K1 and K2 at B=1, K2's launches apart, 10 iterations
+                profiled: device time, idle share); then `cli render` orbits
+                the fitted subject (45 views, one K1 each) and `cli animate
+                --latents` serves it (frames equal `animate_sequence` with
+                the fitted codes);
   5. fused upsampler — serve 8 Reso64 frames through `animate_sequence`
                 with `HeadNeRF(use_fused=True, use_fused_upsampler=True)`
                 (K1 and K5-fwd launches counted, frames held against the
@@ -69,6 +86,7 @@ with a traceback and exit code 1 after TIME_LIMIT_S seconds.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import math
@@ -154,9 +172,10 @@ KERNELS = ("fused_render_fwd", "fused_render_bwd", "fused_upsampler_fwd", "fused
 # K2's kernels, by the names the profiler gives them
 K2_PARTS = ("ray_kernel", "xtg_jobs_kernel", "xtg_reduce")
 # the whole run's time limit: about twice the smoke's longest command time
-# on the H100 so far (171 s). A kernel that never ends, or a rank that waits
-# forever, then ends the run with every thread's traceback and exit code 1
-TIME_LIMIT_S = 360
+# on the H100 so far (181-215 s). A kernel that never ends, or a rank that
+# waits forever, then ends the run with every thread's traceback and exit
+# code 1
+TIME_LIMIT_S = 450
 FRAMES = 8   # served at Reso64 in chunks of 4: two K1 launches
 DEVICE = "cuda"        # of the training phases
 TRAIN_EPOCHS = 2        # cli train at Reso64: 8 synthetic frames, B=2 -> 4 steps an epoch,
@@ -698,6 +717,7 @@ def phase_subject(seed: int, workdir: str):
     t = Trainer(cfg, tc, train, val, device=DEVICE, train_eval_data=train_eval)
     t.init()
     untrained = t.validate()   # the train-eval frames' TRAIN_PSNR before any step
+    opacity_untrained = nerf_opacity(t.state.nerf.eval())
 
     fr.fused_render_fwd.launches = 0
     fr.fused_render_bwd.launches = 0
@@ -738,6 +758,11 @@ def phase_subject(seed: int, workdir: str):
             or (k1, k2) != (k1_train + k1_val, k2_train + k2_val):
         raise AssertionError(f"subject launches: train steps K1 {k1_train} K2 {k2_train}, "
                              f"validation K1 {k1_val} K2 {k2_val}, whole run K1 {k1} K2 {k2}")
+
+    # the NeRF's opacity, recorded: at TrainConfig seed 0 it goes transparent
+    opacity = nerf_opacity(t.state.nerf.eval())
+    log(f"subject: NeRF opacity of val frame 0 (1 - mean bg_alpha), untrained "
+        f"{opacity_untrained:.4f} -> trained {opacity:.4f}")
 
     # serve the trained checkpoint: the frames that reach write_video
     chunk = 4
@@ -788,8 +813,395 @@ def phase_subject(seed: int, workdir: str):
     return {"steps": steps, "ms_per_step": ms_step, "train_s": train_s, "phase_s": phase_s,
             "untrained_psnr": untrained["TRAIN_PSNR"], "train_psnr": final["TRAIN_PSNR"],
             "train_ssim": final["TRAIN_SSIM"], "val_psnr": [h["PSNR"] for h in validated],
+            "opacity_untrained": opacity_untrained, "opacity": opacity,
             "mp4": written, "k1_train": k1_train, "k2": k2_train, "k1_validation": k1_val,
             "k1_animate": k1_serve}
+
+
+# the fit phase: the subject's checkpoint fitted to its own val frame 0,
+# rendered at a known camera offset with the frame's codes, iden then off by
+# FIT_IDEN_ERR in the fit's base codes
+FIT_ITERS = 300
+FIT_PROFILE_ITERS = 10
+FIT_VIEWS = 45
+FIT_EULER, FIT_T, FIT_IDEN_ERR = (0.05, -0.05, 0.0), (0.1, 0.0, 0.0), 0.1
+# the fit's subject must render its face: 1 - mean bg_alpha of its val frame 0
+FIT_MIN_OPACITY = 0.2
+# one fit iteration's gradients (each FitVar), through K1/K2 (K2 with input
+# gradients) against the same graph through their plain versions, both
+# bf16: relative L2 of each leaf. Both round at the same places; only ReLU
+# mask flips from another f32 summation order separate them. The codes'
+# gradients come through the per-batch bias sums, like the train step's
+# leaves (STEP_GRAD_REL_L2; measured 8.7e-4 to 1.1e-3). The camera's sum
+# d_pe over 262,144 points with much cancellation, which amplifies a flip's
+# difference (measured 3.9e-3 and 7.1e-3): FIT_CAM_REL_L2, an order of
+# magnitude above. Against the plain autograd path, which rounds in
+# other places, only the codes are held (FIT_GRAD_REL_L2): there the
+# camera's gradient differs by bf16 rounding alone from 5.6e-2 to 5.3e-1
+# over the runs, since each bf16 path is off f64 on the rotation (the
+# kernels' by 1.6e-1, the plain path's by 2.8e-2: `python -m
+# nerf3dtalker_tpu_torch.scripts.fit_precision`), and it is logged
+FIT_GRAD_REL_L2 = 3e-2
+FIT_CAM_REL_L2 = 1e-1
+
+
+def subject_frame_codes(cfg):
+    """(codes, frame arrays) of the subject's val frame 0: iden, expr with
+    its audio_exp over expr[:64] (as the trainer assembles them), text, illu."""
+    import numpy as np
+
+    from nerf3dtalker_tpu_torch.data.dataset import coherent_subject
+
+    frame = {k: v[:1] for k, v in
+             coherent_subject(cfg, SUBJECT_VAL_FRAMES, t0=SUBJECT_FRAMES).arrays.items()}
+    aexp = frame["audio_exp"]
+    return {"iden": frame["iden"], "expr": np.concatenate([aexp, frame["expr"][:, aexp.shape[1]:]],
+                                                          -1),
+            "text": frame["text"], "illu": frame["illu"]}
+
+
+def nerf_opacity(model) -> float:
+    """1 - mean bg_alpha of the subject's val frame 0 at the base camera,
+    audio style zero: 0 when the NeRF has gone transparent."""
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch.utils.camera import base_cam, ray_grid
+
+    cfg = model.cfg
+    codes = subject_frame_codes(cfg)
+    cam = base_cam(cfg.featmap_size)
+    dev = next(model.parameters()).device
+    args = (ray_grid(cfg.featmap_size)[0], np.concatenate([codes["iden"], codes["expr"]], -1),
+            np.concatenate([codes["text"], codes["illu"]], -1),
+            np.zeros((1, cfg.audio_style_dims)), cam.Rmat, cam.Tvec, cam.inv_inmat)
+    with torch.no_grad():
+        out = model(*(torch.as_tensor(a, dtype=torch.float32, device=dev) for a in args))
+    return 1.0 - float(out["bg_alpha"].mean())
+
+
+def train_fit_subject(seed: int, workdir: str):
+    """The subject the fit phase fits: `coherent_subject` through the
+    trainer as the subject phase trains it, at TrainConfig seed `seed` + 1,
+    validated and checkpointed once, after the last epoch. At seed 0 the
+    subject phase's NeRF goes transparent in its first epoch (that phase
+    records its opacity), and a transparent NeRF gives a fit no gradient to
+    follow; seed 1's stays opaque. Returns (checkpoint dir, opacity)."""
+    import shutil
+
+    from nerf3dtalker_tpu_torch.config import TrainConfig
+    from nerf3dtalker_tpu_torch.data.dataset import coherent_subject
+    from nerf3dtalker_tpu_torch.train.trainer import Trainer
+
+    ckpt_dir = os.path.join(workdir, "fit_subject_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = train_config()
+    tc = TrainConfig(batch_size=2, epochs=SUBJECT_EPOCHS, lr=2e-4, seed=seed + 1,
+                     ckpt_dir=ckpt_dir, log_dir="", guard_policy="rollback",
+                     val_every=SUBJECT_EPOCHS)
+    t = Trainer(cfg, tc, coherent_subject(cfg, SUBJECT_FRAMES, t0=0),
+                coherent_subject(cfg, SUBJECT_VAL_FRAMES, t0=SUBJECT_FRAMES), device=DEVICE)
+    t.init()
+    t0 = time.perf_counter()
+    hist = t.train()
+    opacity = nerf_opacity(t.state.nerf.eval())
+    log(f"fit: its subject, TrainConfig seed {seed + 1}: {SUBJECT_EPOCHS} epochs in "
+        f"{time.perf_counter() - t0:.1f} s, val PSNR {hist[-1]['PSNR']:.3f} dB, NeRF opacity "
+        f"{opacity:.4f}")
+    return ckpt_dir, opacity
+
+
+def phase_fit(seed: int, workdir: str):
+    """Fit a trained subject's checkpoint to one image (`cli fit`), then
+    orbit (`cli render`) and serve (`cli animate --latents`) the fitted
+    codes."""
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.data.mel import per_frame_mel_chunks, read_wav_mono
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_upsampler as fu
+    from nerf3dtalker_tpu_torch.train import fitting
+    from nerf3dtalker_tpu_torch.train.animate import animate_sequence, styles_from_mels
+    from nerf3dtalker_tpu_torch.utils.camera import base_cam, ray_grid
+    from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint
+
+    t_phase = time.perf_counter()
+    ckpt_dir, subject_opacity = train_fit_subject(seed, workdir)
+    if not subject_opacity >= FIT_MIN_OPACITY:
+        raise AssertionError(f"fit: the subject's NeRF is transparent (opacity "
+                             f"{subject_opacity:.4f}): nothing for a fit to follow")
+    state = load_checkpoint(ckpt_dir, map_location="cpu")
+    cfg = cli._nerf_config(argparse.Namespace(featmap_size=None, img_size=None), state)
+    dev = torch.device(DEVICE)
+    model = cli.build_nerf(cfg, seed, dev, state=state)
+    del state
+
+    # 1. the target: val frame 0 with its codes, audio style zero, at the
+    # camera offset
+    codes = subject_frame_codes(cfg)
+    cam = base_cam(cfg.featmap_size)
+    cam_d = {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}
+    zero_style = np.zeros((1, cfg.audio_style_dims), np.float32)
+    offset = fitting.FitVars(*(torch.zeros(1, n) for n in (100, 79, 127)),
+                             torch.tensor([FIT_EULER]), torch.tensor([FIT_T]))
+    with torch.no_grad():
+        shape, appea, Rmat, Tvec = fitting.apply_fit_vars(
+            offset, {k: torch.as_tensor(v) for k, v in codes.items()},
+            {k: torch.as_tensor(v) for k, v in cam_d.items()})
+        xy = torch.as_tensor(ray_grid(cfg.featmap_size)[0], device=dev)
+        out = model(xy, shape.to(dev), appea.to(dev), torch.zeros(1, 64, device=dev),
+                    Rmat.to(dev), Tvec.to(dev), torch.as_tensor(cam.inv_inmat, device=dev))
+        target = out["merge_img"][0].float().clamp(0, 1).cpu().numpy()
+        opacity = 1.0 - float(out["bg_alpha"].mean())
+    S = cfg.pred_img_size
+    target_npz = os.path.join(workdir, "target.npz")
+    base = dict(codes, iden=codes["iden"] + np.float32(FIT_IDEN_ERR))
+    np.savez(target_npz, image=target, mask=np.ones((S, S, 1), np.float32), **base)
+    log(f"fit: target = val frame 0 of the subject at featmap {cfg.featmap_size}, Δeuler "
+        f"{FIT_EULER} rad, ΔT {FIT_T}, audio style zero; its opacity (1 - mean bg_alpha) "
+        f"{opacity:.4f}; the fit's base iden off by {FIT_IDEN_ERR}")
+
+    # 2. one iteration's gradients through the kernels, through their
+    # plain versions in the same graph, and through the plain path
+    problem = fitting.FitProblem(model, target[None], np.ones((1, S, S, 1), np.float32), base,
+                                 cam_d, zero_style)
+    counts = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches,
+              fr.fused_render_bwd.input_grads_launches)
+    loss_k, data_k, g_k = problem.gradients(fitting.init_fit_vars(dev))
+    parity_launches = (fr.fused_render_fwd.launches - counts[0],
+                       fr.fused_render_bwd.launches - counts[1],
+                       fr.fused_render_bwd.input_grads_launches - counts[2])
+    with kernels_as_plain_versions():
+        loss_v, _, g_v = problem.gradients(fitting.init_fit_vars(dev))
+    model.use_fused = False
+    loss_p, _, g_p = problem.gradients(fitting.init_fit_vars(dev))
+    model.use_fused = True
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    names = fitting.FitVars._fields
+    errs = {"plain_versions": {n: rel(a, b) for n, a, b in zip(names, g_k, g_v)},
+            "plain_path": {n: rel(a, b) for n, a, b in zip(names, g_k, g_p)}}
+    norms = {n: float(b.norm()) for n, b in zip(names, g_v)}
+    limits = {"plain_versions": {n: FIT_CAM_REL_L2 if n.startswith("delta") else FIT_GRAD_REL_L2
+                                 for n in names},
+              "plain_path": {n: FIT_GRAD_REL_L2 for n in names if not n.startswith("delta")}}
+    loss_rel = {"plain_versions": abs(float(loss_k) - float(loss_v)) / abs(float(loss_v)),
+                "plain_path": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))}
+    for against in errs:
+        log(f"fit gradient at iteration 0, kernels vs {against.replace('_', ' ')} (bf16): loss "
+            f"rel {loss_rel[against]:.2e} (tolerance {STEP_LOSS_RTOL:.0e}); rel L2 by FitVar "
+            + ", ".join(f"{n} {v:.3e} (|g| {norms[n]:.3e}, tolerance "
+                        + (f"{limits[against][n]:.0e})" if n in limits[against] else "none)")
+                        for n, v in errs[against].items()))
+    log(f"fit gradient: launches K1/K2/K2 with input grads {parity_launches} (expected (1, 1, 1))")
+    if parity_launches != (1, 1, 1) or not all(torch.isfinite(g).all() for g in g_k):
+        raise AssertionError(f"fit gradient: launches {parity_launches}, or non-finite")
+    if max(loss_rel.values()) > STEP_LOSS_RTOL or min(norms.values()) <= 0 or any(
+            errs[a][n] > limit for a in limits for n, limit in limits[a].items()):
+        raise AssertionError("the fit's gradients through the kernels disagree with the plain "
+                             "versions or the plain path")
+
+    # 3. cli fit on the card, counted and timed around fit_single_image
+    fitted = os.path.join(workdir, "fitted.npz")
+    timed = {}
+    fit_fn = fitting.fit_single_image
+
+    def fit_timed(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = fit_fn(*a, **kw)
+        ev[1].record()
+        ev[1].synchronize()
+        timed["ms"] = ev[0].elapsed_time(ev[1])
+        return res
+
+    for k in (fr.fused_render_fwd, fr.fused_render_bwd, fu.phase_block_fwd, fu.phase_block_bwd):
+        k.launches = 0
+    fr.fused_render_bwd.input_grads_launches = 0
+    fitting.fit_single_image = fit_timed
+    try:
+        t0 = time.perf_counter()
+        rec = cli.main(["fit", "--ckpt", ckpt_dir, "--data", target_npz, "--iters",
+                        str(FIT_ITERS), "--device", DEVICE, "--out", fitted])
+        fit_wall = time.perf_counter() - t0
+    finally:
+        fitting.fit_single_image = fit_fn
+    k1, k2, k2_ig = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches,
+                     fr.fused_render_bwd.input_grads_launches)
+    k5 = fu.phase_block_fwd.launches + fu.phase_block_bwd.launches
+    ms_iter = timed["ms"] / FIT_ITERS
+    with np.load(fitted) as z:
+        fit_vals = {k: z[k] for k in z.files}
+    head_ratio = rec["head_loss"] / float(data_k["head_loss"])
+    log(f"fit: cli fit --iters {FIT_ITERS}: {timed['ms'] / 1e3:.2f} s in fit_single_image "
+        f"(CUDA events; the {FIT_ITERS} iterations and the final forward), {ms_iter:.2f} ms an "
+        f"iteration; whole cli call {fit_wall:.1f} s; launches K1 {k1} (expected "
+        f"{FIT_ITERS + 1}), K2 {k2} with input grads {k2_ig} (expected {FIT_ITERS}), K5 {k5} "
+        f"(expected 0); head loss {float(data_k['head_loss']):.5f} at iteration 0 -> "
+        f"{rec['head_loss']:.5f} ({head_ratio:.4f} of it); total {rec['total_loss']:.5f}; "
+        f"fitted Δeuler {fit_vals['delta_euler'][0].tolist()} (target {FIT_EULER}), ΔT "
+        f"{fit_vals['delta_tvec'][0].tolist()} (target {FIT_T}), mean iden offset "
+        f"{float(fit_vals['iden_offset'].mean()):+.4f} (base off by +{FIT_IDEN_ERR})")
+    losses = [rec[k] for k in ("bg_loss", "head_loss", "nonhead_loss", "total_loss")]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"fit: non-finite loss {rec}")
+    if (k1, k2, k2_ig, k5) != (FIT_ITERS + 1, FIT_ITERS, FIT_ITERS, 0):
+        raise AssertionError(f"fit launched K1 {k1}, K2 {k2} ({k2_ig} with input grads), K5 {k5}")
+    if not head_ratio < 1.0:
+        raise AssertionError(f"fit: the head loss did not fall ({head_ratio:.4f} of iteration 0)")
+    if set(fit_vals) != set(fitting.FitVars._fields) | {"iden", "expr", "text", "illu"}:
+        raise AssertionError(f"fitted.npz keys {sorted(fit_vals)}")
+
+    # where an iteration's time goes: K1 and K2 at B=1 (K2 with input
+    # grads, its three launches apart), the plain decoder pair forward and
+    # backward, and 10 profiled iterations (device time, idle share)
+    parts = fit_breakdown(model, problem, seed)
+
+    # 4. cli render: the orbit of the fitted subject
+    views = os.path.join(workdir, "novel_views.npy")
+    fr.fused_render_fwd.launches = 0
+    t0 = time.perf_counter()
+    rrec = cli.main(["render", "--ckpt", ckpt_dir, "--latents", fitted, "--views",
+                     str(FIT_VIEWS), "--device", DEVICE, "--out", views])
+    render_wall = time.perf_counter() - t0
+    k1_render = fr.fused_render_fwd.launches
+    frames = np.load(views)
+    log(f"fit: cli render --views {FIT_VIEWS}: {render_wall:.1f} s (whole cli call), K1 "
+        f"launches {k1_render} (expected {FIT_VIEWS}), frames {list(frames.shape)} in "
+        f"[{frames.min():.4f}, {frames.max():.4f}]")
+    if k1_render != FIT_VIEWS or frames.shape != (FIT_VIEWS, S, S, 3) \
+            or not np.isfinite(frames).all() or frames.min() < 0 or frames.max() > 1 \
+            or rrec["shape"] != list(frames.shape):
+        raise AssertionError("cli render of the fitted subject")
+    del frames
+    os.remove(views)
+
+    # 5. cli animate serves the fitted codes: the frames equal
+    # animate_sequence on the checkpoint's models with those codes
+    chunk = 4
+    wav = os.path.join(workdir, "fit.wav")
+    out = os.path.join(workdir, "fit_frames.npy")
+    write_wav(wav, seed + 2, FRAMES)
+    fr.fused_render_fwd.launches = 0
+    cli.main(["animate", "--wav", wav, "--ckpt", ckpt_dir, "--latents", fitted, "--chunk",
+              str(chunk), "--device", DEVICE, "--out", out])
+    k1_animate = fr.fused_render_fwd.launches
+    served = np.load(out)
+    served_model, a2s = cli.build_models(cfg, seed, dev, state=load_checkpoint(
+        ckpt_dir, map_location="cpu"))
+    shape_np, appea_np = cli._codes_from_latents(fitted)
+    own = animate_sequence(served_model, shape_np, appea_np,
+                           styles_from_mels(a2s, per_frame_mel_chunks(*read_wav_mono(wav))),
+                           cam_d, chunk=chunk)
+    diff = float(np.abs(own - served).max())
+    log(f"fit: cli animate --latents: {len(served)} frames, K1 launches {k1_animate} (expected "
+        f"{-(-FRAMES // chunk)}); frames vs animate_sequence with the fitted codes, max_abs "
+        f"{diff:.3e} (expected 0)")
+    if served.shape != (FRAMES, S, S, 3) or diff != 0.0 or k1_animate != -(-FRAMES // chunk):
+        raise AssertionError("cli animate --latents disagrees with animate_sequence")
+    phase_s = time.perf_counter() - t_phase
+    log(f"fit: phase {phase_s:.1f} s")
+    return {"subject_opacity": subject_opacity, "opacity": opacity, "grad_rel_l2": errs,
+            "grad_loss_rel": loss_rel,
+            "iters": FIT_ITERS, "ms_per_iter": ms_iter, "fit_s": timed["ms"] / 1e3,
+            "cli_fit_wall_s": fit_wall, "head_loss_0": float(data_k["head_loss"]),
+            "head_loss_final": rec["head_loss"], "head_loss_ratio": head_ratio,
+            "delta_euler": fit_vals["delta_euler"][0].tolist(),
+            "delta_tvec": fit_vals["delta_tvec"][0].tolist(), "breakdown": parts,
+            "render_wall_s": render_wall, "phase_s": phase_s,
+            "k1_fit": k1, "k2_fit": k2, "k1_render": k1_render, "k1_animate": k1_animate}
+
+
+@contextlib.contextmanager
+def kernels_as_plain_versions():
+    """`FusedRender` with its forward and backward through the kernels'
+    plain versions (`reference_render`, `reference_render_bwd`: the same
+    signatures) for the block; nothing is launched or counted there."""
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+
+    kernels = fr.fused_render_fwd, fr.fused_render_bwd
+    fr.fused_render_fwd, fr.fused_render_bwd = fr.reference_render, fr.reference_render_bwd
+    try:
+        yield
+    finally:
+        fr.fused_render_fwd, fr.fused_render_bwd = kernels
+
+
+def fit_breakdown(model, problem, seed: int):
+    """CUDA-event times of one fit iteration and its parts at Reso64 B=1,
+    K2's three launches by torch.profiler, and a profile of
+    FIT_PROFILE_ITERS iterations (device time by kernel, idle share)."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.train import fitting
+
+    fit = fitting.init_fit_vars(DEVICE)
+    opt, sched = fitting.make_fit_optimizer(fit, 0.01, FIT_ITERS)
+
+    def iteration():
+        fitting.fit_iteration(problem, fit, opt, sched)
+
+    ms_iter = cuda_ms(iteration, reps=10, warmup=3)
+    g = torch.Generator().manual_seed(seed + 3)
+    with torch.no_grad():
+        shape, appea, Rmat, Tvec = fitting.apply_fit_vars(fit, problem.codes, problem.cam)
+        pe, zd, zv = rays_and_pe(problem.xy, Rmat, Tvec, problem.cam["inv_inmat"])
+        packed = fr.pack_weights(dict(model.fg_CD_predictor.named_parameters()), shape, appea,
+                                 problem.audio_style)
+        packed = {k: (v.to(torch.bfloat16) if k.startswith("w") else v.float()).contiguous()
+                  for k, v in packed.items()}
+        B, R, ns, _ = pe.shape
+        gf, gb, gd = (torch.randn(*sh, generator=g).to(DEVICE)
+                      for sh in ((B, R, fr.FEAT), (B, R), (B, R)))
+        k1_ms = cuda_ms(lambda: fr.fused_render_fwd(pe, zd, zv, packed), reps=10)
+        k2_ms = cuda_ms(lambda: fr.fused_render_bwd(pe, zd, zv, packed, gf, gb, gd,
+                                                    input_grads=True), reps=10)
+        k2_plain_ms = cuda_ms(lambda: fr.reference_render_bwd(
+            pe, zd, zv, packed, gf, gb, gd, torch.bfloat16, input_grads=True), reps=3, warmup=1)
+        kernels = device_launches_by_kernel(lambda: fr.fused_render_bwd(
+            pe, zd, zv, packed, gf, gb, gd, input_grads=True), calls=3)
+    # device ms of each of K2's three launches, per launch the profiler
+    # recorded (at this shape it has recorded one call's launches of three)
+    k2_parts = None
+    if kernels:
+        k2_parts = {}
+        for part in K2_PARTS:
+            ms, n = (sum(v[i] for k, v in kernels.items() if part in k) for i in (0, 1))
+            k2_parts[part] = ms / n if n else None
+        k2_parts["launches_recorded_per_call"] = sum(
+            v[1] for k, v in kernels.items() if any(part in k for part in K2_PARTS)) / 3
+    macs = mlp_macs(packed)
+    flops = 2.0 * B * R * ns * 3 * macs   # recompute + dW + dX
+    outs_bytes = 4 * (pe.numel() + zd.numel() + zv.numel()) + sum(
+        4 * v.numel() for v in packed.values())
+    k2_bound, k2_bound_by = bound(flops, tensor_bytes(pe, zd, zv, gf, gb, gd, *packed.values())
+                                  + outs_bytes)
+    nr = model.neural_render
+    S = model.cfg.featmap_size
+    merge = torch.randn(1, S, S, model.cfg.featmap_nc, generator=g).to(DEVICE).requires_grad_()
+
+    def decoder():   # the fit differentiates the merge pass only; the weights are frozen
+        with fitting.frozen(nr):
+            loss = nr(merge).float().sum() + nr(nr.bg_featmap).float().sum()
+            torch.autograd.grad(loss, [merge])
+
+    parts = {"iteration": ms_iter, "K1 fused_render_fwd B=1": k1_ms,
+             "K2 fused_render_bwd B=1 input_grads": k2_ms,
+             "decoder_x2_fwd_merge_bwd B=1": cuda_ms(decoder, reps=5)}
+    rec = {"ms": parts, "k2_parts_ms": k2_parts, "k2_plain_ms": k2_plain_ms,
+           "k2_bound_ms": k2_bound, "k2_bound_by": k2_bound_by}
+    log("fit_breakdown " + json.dumps(rec))
+    rec["profile"] = prof = profile_steps(iteration, steps=FIT_PROFILE_ITERS, label="fit_profile")
+    if prof:   # K2's launches inside the fit's own iterations
+        rec["k2_parts_in_fit_ms"] = {part: sum(v for k, v in prof["kernels_ms_per_step"].items()
+                                               if part in k) for part in K2_PARTS}
+        log("fit_profile K2 parts, device ms an iteration: " + json.dumps(rec["k2_parts_in_fit_ms"]))
+    return rec
 
 
 def _train_setup(seed: int, use_fused: bool = True):
@@ -948,21 +1360,21 @@ def device_ms_by_kernel(fn, calls: int):
     return kernels, wall_ms
 
 
-def profile_steps(step, steps: int):
+def profile_steps(step, steps: int, label: str = "train_profile"):
     """Device time by kernel over `steps` steady steps (torch.profiler), and
     the device's busy share of the window's wall time. The profiler's own
     host overhead lengthens the window, so the idle share is an upper
     bound. Returns None when the profiler records no device time."""
     kernels, wall_ms = device_ms_by_kernel(step, steps)
     if not kernels:
-        log("train_profile: the profiler recorded no device time (not measured)")
+        log(f"{label}: the profiler recorded no device time (not measured)")
         return None
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     rec = {"steps": steps, "wall_ms_per_step": wall_ms / steps, "device_ms_per_step": busy,
            "device_idle_share": max(0.0, 1.0 - busy * steps / wall_ms),
            "kernels_ms_per_step": {k[:90]: v for k, v in top}}
-    log("train_profile " + json.dumps(rec))
+    log(f"{label} " + json.dumps(rec))
     return rec
 
 
@@ -1767,6 +2179,7 @@ def main() -> int:
     workdir = os.path.join(root, "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
 
+    t_start = time.perf_counter()
     build_info = phase_build()
     k1 = phase_kernels(args.seed, build_info["ptxas"]["fused_render_fwd"])
     k2 = phase_kernel_bwd(args.seed)
@@ -1775,6 +2188,7 @@ def main() -> int:
     parity = phase_train_parity(args.seed)
     step = phase_train_breakdown(args.seed)
     subject = phase_subject(args.seed, workdir)
+    fit = phase_fit(args.seed, workdir)
     k5f, k5b = phase_upsampler_kernels(args.seed, build_info["ptxas"])
     ups_serving = phase_serving_upsampler(args.seed, FRAMES, workdir)
     ups_grad = phase_gradient_upsampler(args.seed)
@@ -1803,10 +2217,21 @@ def main() -> int:
                               "gradient_fused_upsampler": ups_grad["k1"],
                               "subject_train_steps": subject["k1_train"],
                               "subject_validation": subject["k1_validation"],
-                              "subject_animate": subject["k1_animate"]}
+                              "subject_animate": subject["k1_animate"],
+                              "fit": fit["k1_fit"], "render": fit["k1_render"],
+                              "fit_animate": fit["k1_animate"]}
     k2["launches_by_path"] = {"train_steps": train["k2"],
                               "gradient_fused_upsampler": ups_grad["k2"],
-                              "subject_train_steps": subject["k2"]}
+                              "subject_train_steps": subject["k2"], "fit": fit["k2_fit"]}
+    # K2 at the fit's shape (B=1, input_grads=True): its launches on the fit
+    # path all have input gradients
+    bd = fit["breakdown"]
+    k2["fit_b1_input_grads"] = {"ms": bd["ms"]["K2 fused_render_bwd B=1 input_grads"],
+                                "parts_ms_per_launch": bd["k2_parts_ms"],
+                                "parts_in_fit_ms": bd.get("k2_parts_in_fit_ms"),
+                                "plain_ms": bd["k2_plain_ms"],
+                                "bound_ms": bd["k2_bound_ms"], "bound_by": bd["k2_bound_by"]}
+    k1["ms_fit_b1"] = bd["ms"]["K1 fused_render_fwd B=1"]
     k5f["launches_by_path"] = {"serving_fused_upsampler": ups_serving["k5"],
                                "gradient_fused_upsampler": ups_grad["k5f"]}
     k5b["launches_by_path"] = {"gradient_fused_upsampler": ups_grad["k5b"]}
@@ -1816,9 +2241,10 @@ def main() -> int:
                     "fused_upsampler": {"serving": ups_serving, "gradient": ups_grad},
                     "training": {"steps": train["steps"], "ms_per_step": step["ms_per_step"],
                                  "rays_per_s": step["rays_per_s"], "parity": parity},
-                    "subject": subject,
+                    "subject": subject, "fit": fit,
                     "mesh": {"epoch_2x2": mesh_train, "parity": mesh_parity, "nccl_1x1": nccl},
                     "build_s": build_info["build_s"], "nvcc": build_info["nvcc"]}))
+    log(f"smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(json.dumps({"kernels": [k1, k2, k5f, k5b, k4, probe]}))

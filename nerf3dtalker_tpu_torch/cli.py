@@ -12,6 +12,12 @@
             checkpoint of `train` with --ckpt) -> optional enhancer ->
             frames as an .mp4 with the wav muxed in (ffmpeg; PNGs without
             it) or as .npy
+  fit     — fit a subject's code offsets and camera deltas to one image
+            (an .npz with `image`, optional `mask` and base codes, or a
+            synthetic target), HeadNeRF's weights frozen (seeded, --params,
+            or --ckpt); writes fitted.npz with the JAX `fit`'s keys
+  render  — the 45-view orbit of a subject (--latents fitted.npz, or
+            seeded codes) as an .npy of frames
 
 Runs on `cuda` unless `--device cpu` is given. On the GPU HeadNeRF computes
 in bf16 through the fused render kernels; on the CPU in f32 through the
@@ -46,17 +52,27 @@ def _codes_from_latents(path):
     return shape, appea
 
 
-def build_models(cfg, seed: int, device, params: str = "", state=None):
-    """The serving models on `device`: HeadNeRF in bf16 through the fused
-    kernel on the GPU (f32, plain path on the CPU) and Audio2Style. Weights
-    come from `params`, the `/`-joined .npz of `{"nerf": ..., "audio": ...}`
-    flax variables that `save_pytree_npz` writes, or from `state`, a
-    checkpoint payload of the port's trainer (`nerf` and `audio` state
-    dicts); without either they are initialized from `seed` (NeRF) and 1
-    (audio), as the JAX CLI does."""
+def _params_tree(params: str, keys) -> dict:
+    """The `/`-joined .npz of flax variables that `save_pytree_npz` writes,
+    with the top-level `keys` (`nerf`, and `audio` where the command needs
+    it; `fit` and `render` read only `nerf`)."""
+    from nerf3dtalker_tpu_torch.utils import bridge
+
+    tree = bridge.load_npz_tree(params)
+    if not set(keys) <= set(tree) <= {"nerf", "audio"}:
+        raise ValueError(f"{params}: top-level keys must be {' and '.join(keys)}"
+                         f"{'' if 'audio' in keys else ' (audio optional)'}, got {sorted(tree)}")
+    return tree
+
+
+def build_nerf(cfg, seed: int, device, nerf_tree=None, state=None):
+    """HeadNeRF on `device`: bf16 through the fused kernels on the GPU
+    (f32, plain path on the CPU). Weights come from `nerf_tree` (the `nerf`
+    flax variables of a params .npz), or from `state`, a checkpoint payload
+    of the port's trainer; without either they are initialized from
+    `seed`."""
     import torch
 
-    from nerf3dtalker_tpu_torch.models.audio import Audio2Style
     from nerf3dtalker_tpu_torch.models.headnerf import HeadNeRF
     from nerf3dtalker_tpu_torch.utils import bridge
 
@@ -64,18 +80,33 @@ def build_models(cfg, seed: int, device, params: str = "", state=None):
     model = HeadNeRF(cfg, compute_dtype=torch.bfloat16 if on_gpu else torch.float32,
                      use_fused=on_gpu, device=device,
                      generator=torch.Generator().manual_seed(seed))
-    a2s = Audio2Style(device=device, generator=torch.Generator().manual_seed(1))
-    if params:
-        tree = bridge.load_npz_tree(params)
-        if set(tree) != {"nerf", "audio"}:
-            raise ValueError(f"{params}: top-level keys must be nerf and audio, "
-                             f"got {sorted(tree)}")
-        bridge.load_into(model, bridge.headnerf_state_dict(tree["nerf"]))
-        bridge.load_into(a2s, bridge.audio2style_state_dict(tree["audio"]))
+    if nerf_tree is not None:
+        bridge.load_into(model, bridge.headnerf_state_dict(nerf_tree))
     if state is not None:
         model.load_state_dict(state["nerf"])
+    return model.eval()
+
+
+def build_models(cfg, seed: int, device, params: str = "", state=None):
+    """The serving models on `device`: `build_nerf`'s HeadNeRF and
+    Audio2Style. Weights come from `params`, the `/`-joined .npz of
+    `{"nerf": ..., "audio": ...}` flax variables, or from `state`, a
+    checkpoint payload of the port's trainer (`nerf` and `audio` state
+    dicts); without either they are initialized from `seed` (NeRF) and 1
+    (audio), as the JAX CLI does."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.models.audio import Audio2Style
+    from nerf3dtalker_tpu_torch.utils import bridge
+
+    tree = _params_tree(params, ("nerf", "audio")) if params else {}
+    model = build_nerf(cfg, seed, device, tree.get("nerf"), state)
+    a2s = Audio2Style(device=device, generator=torch.Generator().manual_seed(1))
+    if params:
+        bridge.load_into(a2s, bridge.audio2style_state_dict(tree["audio"]))
+    if state is not None:
         a2s.load_state_dict(state["audio"])
-    return model.eval(), a2s.eval()
+    return model, a2s.eval()
 
 
 def _nerf_config(args, state=None):
@@ -139,6 +170,92 @@ def cmd_animate(args) -> dict:
     else:
         video.write_video(frames, out, fps=args.fps, audio_path=args.wav)
     rec["out"] = out
+    print(json.dumps(rec))
+    return rec
+
+
+def _fit_model(args):
+    """(model, cfg, device) of `fit` and `render`: the weights of --ckpt
+    (its config, with --featmap-size / --img-size over it), of --params, or
+    seeded."""
+    from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint
+    from nerf3dtalker_tpu_torch.utils.device import resolve_device
+
+    if args.ckpt and args.params:
+        raise SystemExit("--ckpt and --params both give the weights: pass one of them")
+    dev = resolve_device(args.device)
+    state = load_checkpoint(args.ckpt, map_location="cpu") if args.ckpt else None
+    cfg = _nerf_config(args, state)
+    tree = _params_tree(args.params, ("nerf",))["nerf"] if args.params else None
+    return build_nerf(cfg, args.seed, dev, tree, state), cfg, dev
+
+
+def cmd_fit(args) -> dict:
+    """Single-image latent/camera fitting (FittingSingleImage_new.py:620-903,
+    JAX `cli.py:cmd_fit`): `--iters` Adam steps over code offsets and
+    camera deltas against one target image at the base camera, audio style
+    zero. --data: an .npz with image [H, W, 3] (+ optional mask [H, W, 1]
+    and iden/expr/text/illu base codes, zero where absent); without it a
+    synthetic target, uniform noise from --seed (smoke mode)."""
+    import numpy as np
+
+    from nerf3dtalker_tpu_torch.train.fitting import fit_single_image
+    from nerf3dtalker_tpu_torch.utils.camera import base_cam
+
+    model, cfg, dev = _fit_model(args)
+    cam = base_cam(cfg.featmap_size)
+    S = cfg.pred_img_size
+    dims = {"iden": cfg.iden_code_dims, "expr": cfg.expr_code_dims,
+            "text": cfg.text_code_dims, "illu": cfg.illu_code_dims}
+    base_codes = {k: np.zeros((1, d), np.float32) for k, d in dims.items()}
+    if args.data:
+        with np.load(args.data) as z:
+            gt = z["image"].astype(np.float32)[None]
+            mask = (z["mask"] if "mask" in z.files else np.ones((S, S, 1))).astype(np.float32)[None]
+            for k in base_codes:
+                if k in z.files:
+                    base_codes[k] = z[k].reshape(1, -1).astype(np.float32)
+    else:
+        print("no --data; fitting a synthetic target (smoke mode)")
+        rng = np.random.default_rng(args.seed)
+        gt = rng.uniform(0, 1, (1, S, S, 3)).astype(np.float32)
+        mask = np.ones((1, S, S, 1), np.float32)
+    cam_d = {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}
+    fit, losses = fit_single_image(model, gt, mask, base_codes, cam_d,
+                                   np.zeros((1, cfg.audio_style_dims), np.float32),
+                                   iters=args.iters, opt_cam=not args.no_cam_opt)
+    out = args.out or "fitted.npz"
+    np.savez(out, **{k: v.cpu().numpy() for k, v in fit._asdict().items()}, **base_codes)
+    rec = {"out": out, **losses, "device": str(dev)}
+    print(json.dumps(rec))
+    return rec
+
+
+def cmd_render(args) -> dict:
+    """The orbit of a subject (JAX `cli.py:cmd_render`): --views cameras of
+    the orbit rig, one render each, to an .npy [V, H, W, 3]. The codes and
+    audio style are seeded draws (0.1 N(0, 1)); --latents (fitted.npz of
+    `fit`) gives the codes with the fitted offsets applied, and its
+    `audio_style` where it has one. The orbit rig ignores the fitted camera
+    deltas, as the reference's render_novel_views does."""
+    import numpy as np
+
+    from nerf3dtalker_tpu_torch.train.fitting import render_novel_views
+
+    model, cfg, dev = _fit_model(args)
+    rng = np.random.default_rng(args.seed)
+    shape = rng.standard_normal((1, cfg.shape_code_dims)).astype(np.float32) * 0.1
+    appea = rng.standard_normal((1, cfg.appea_code_dims)).astype(np.float32) * 0.1
+    aud = rng.standard_normal((1, cfg.audio_style_dims)).astype(np.float32) * 0.1
+    if args.latents:
+        shape, appea = _codes_from_latents(args.latents)
+        with np.load(args.latents) as z:
+            if "audio_style" in z.files:
+                aud = z["audio_style"].astype(np.float32)
+    views = render_novel_views(model, shape, appea, aud, view_num=args.views)
+    out = args.out or "novel_views.npy"
+    np.save(out, views)
+    rec = {"out": out, "shape": list(views.shape), "device": str(dev)}
     print(json.dumps(rec))
     return rec
 
@@ -340,6 +457,34 @@ def main(argv=None):
     pa.add_argument("--out", help=".mp4 (default talking_head.mp4; ffmpeg, the wav muxed "
                     "in) or .npy (frames [T, H, W, 3] in [0, 1])")
     pa.set_defaults(fn=cmd_animate)
+
+    def weights_flags(sp):
+        sp.add_argument("--featmap-size", type=int, default=None,
+                        help="default: the --ckpt's config, else 32")
+        sp.add_argument("--img-size", type=int, default=None,
+                        help="default: the --ckpt's config, else 256")
+        sp.add_argument("--seed", type=int, default=0,
+                        help="seed of the NeRF weights when --params and --ckpt give none, "
+                        "and of the synthetic target or codes")
+        sp.add_argument("--params", help="flax variables as a '/'-joined .npz (keys "
+                        "nerf/params/...; audio/... is ignored)")
+        sp.add_argument("--ckpt", help="checkpoint directory of `train` (its newest checkpoint)")
+        sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    pf = sub.add_parser("fit", help="fit code offsets and camera deltas to one image")
+    weights_flags(pf)
+    pf.add_argument("--data", help="npz: image [H,W,3] (+ mask [H,W,1], iden/expr/text/illu)")
+    pf.add_argument("--iters", type=int, default=300)
+    pf.add_argument("--no-cam-opt", action="store_true", help="keep the camera fixed")
+    pf.add_argument("--out", help="default fitted.npz")
+    pf.set_defaults(fn=cmd_fit)
+
+    pr = sub.add_parser("render", help="orbit views of a subject -> .npy")
+    weights_flags(pr)
+    pr.add_argument("--views", type=int, default=45)
+    pr.add_argument("--latents", help="fitted.npz from `fit`: orbit the fitted subject")
+    pr.add_argument("--out", help="default novel_views.npy")
+    pr.set_defaults(fn=cmd_render)
 
     args = p.parse_args(argv)
     # the flags set on the command line, not left at their parser default

@@ -23,8 +23,14 @@ plain versions on the CPU); feat, bg_alpha and depth are then gathered over
 the rays group (`gather_rays`), and the decoder runs on the whole
 [B/D, S, S, C] map, replicated over the rays group.
 
-Not ported yet: hierarchical sampling, gaze and view-direction conditioning
-(the constructor raises on them).
+The reference's three options run on the plain path, as in the JAX package
+(its `_fused_ok` sends them there): `include_gaze` appends the gaze (or
+zeros) to the shape code, `include_vd` feeds the PE of the ray directions to
+rgb_1, and `hier_sampling` adds a second MLP (`fine_fg_CD_predictor`) over
+the coarse pass's importance samples (`ops.rays.fine_zvals`) and returns its
+image as `fine_merge_img`. The kernels have none of them: on the CPU
+`use_fused` with an option takes the plain path, as in JAX; on the GPU it
+raises, so that no plain path runs unasked on the card.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from nerf3dtalker_tpu_torch.ops.compositing import CompositeResult, alpha_compos
 from nerf3dtalker_tpu_torch.ops.embedding import positional_encoding, positional_encoding_rays
 from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
 from nerf3dtalker_tpu_torch.ops.kernels.fused_upsampler import fused_upsampler
-from nerf3dtalker_tpu_torch.ops.rays import gen_rays, sample_points, stratified_zvals
+from nerf3dtalker_tpu_torch.ops.rays import (SamplePoints, fine_zvals, gen_rays, sample_points,
+                                             stratified_zvals)
 from nerf3dtalker_tpu_torch.parallel.mesh import Mesh, gather_rays
 from nerf3dtalker_tpu_torch.utils.device import resolve_device
 
@@ -58,34 +65,51 @@ class HeadNeRF(nn.Module):
         `device` (default `cuda`)."""
         super().__init__()
         dev = resolve_device(device)
-        if cfg.include_vd or cfg.hier_sampling or cfg.include_gaze:
-            raise NotImplementedError(
-                "hierarchical sampling, gaze and view-direction conditioning "
-                "are not ported yet")
-        if mesh is not None and (not use_fused or use_fused_upsampler):
-            raise ValueError("the mesh path renders through K4 (use_fused=True) and the "
-                             "plain decoder (use_fused_upsampler=False), as in the JAX package")
+        if mesh is not None and (not use_fused or use_fused_upsampler or options(cfg)):
+            raise ValueError("the mesh path renders through K4 (use_fused=True, no option) and "
+                             "the plain decoder (use_fused_upsampler=False), as in the JAX "
+                             "package")
         self.mesh = mesh
         self.cfg, self.compute_dtype, self.use_fused = cfg, compute_dtype, use_fused
         self.use_fused_upsampler = use_fused_upsampler
-        self.fg_CD_predictor = NeRFMLP(
-            vp_channels=cfg.vp_channels, vd_channels=cfg.vd_channels,
-            audio_channels=cfg.audio_style_dims, hidden=cfg.mlp_hidden,
-            out_features=cfg.featmap_nc, compute_dtype=compute_dtype)
+        if use_fused:
+            self._refuse_options(dev)
+
+        def mlp():
+            return NeRFMLP(vp_channels=cfg.vp_channels, vd_channels=cfg.vd_channels,
+                           audio_channels=cfg.audio_style_dims, hidden=cfg.mlp_hidden,
+                           out_features=cfg.featmap_nc, compute_dtype=compute_dtype)
+
+        self.fg_CD_predictor = mlp()
+        self.fine_fg_CD_predictor = mlp() if cfg.hier_sampling else None
         self.neural_render = NeuralRenderer(
             feat_nc=cfg.featmap_nc, out_dim=3, final_actvn=True, min_feat=32,
             featmap_size=cfg.featmap_size, img_size=cfg.pred_img_size,
             bg_type=cfg.bg_type, compute_dtype=compute_dtype)
         self.fg_CD_predictor.reset_parameters(generator)
+        if self.fine_fg_CD_predictor is not None:
+            self.fine_fg_CD_predictor.reset_parameters(generator)
         self.neural_render.reset_parameters(generator)
         self.to(dev)
 
+    def _refuse_options(self, device: torch.device) -> None:
+        """The kernels have no option: on the GPU `use_fused` with one raises."""
+        on = options(self.cfg)
+        if on and device.type != "cpu":
+            raise ValueError(f"use_fused on {device}: the fused render kernels have no "
+                             f"{', '.join(on)}; build this model with use_fused=False")
+
     def _fused_ok(self, device: torch.device) -> bool:
-        """The kernel's gate. The CPU's plain version takes any dims; on the
-        GPU a config at other dims than the kernel's raises."""
+        """The kernel's gate. On the CPU an option sends the render to the
+        plain path (JAX's `_fused_ok`), and the kernel's plain version takes
+        any dims; on the GPU an option or other dims than the kernel's
+        raise."""
         cfg = self.cfg
-        if not self.use_fused or device.type == "cpu":
-            return self.use_fused
+        if not self.use_fused:
+            return False
+        self._refuse_options(device)
+        if device.type == "cpu":
+            return not options(cfg)
         dims = (cfg.mlp_hidden, cfg.featmap_nc, cfg.num_sample_coarse, cfg.vp_pe_dims)
         if dims != (fr.H, fr.FEAT, fr.NS, 63):
             raise ValueError(
@@ -113,9 +137,16 @@ class HeadNeRF(nn.Module):
         Tvec: torch.Tensor,          # [B, 3] or [B, 3, 1]
         inv_inmat: torch.Tensor,     # [B, 3, 3]
         noise: Optional[torch.Tensor] = None,   # [B, N_r, N_s+1] stratified jitter
+        gaze: Optional[torch.Tensor] = None,    # [B, eye_gaze_dim] with include_gaze
+        fine_u: Optional[torch.Tensor] = None,  # [B, N_r, num_sample_fine+1] uniform draws
     ) -> Dict[str, torch.Tensor]:
+        """Without `gaze` a gaze model takes zeros (HeadNeRFNet.py:51-52);
+        without `fine_u` the fine samples are deterministic."""
         cfg = self.cfg
         B, S = batch_xy.shape[0], cfg.featmap_size   # B: this rank's frames under a mesh
+        if cfg.include_gaze:
+            g = gaze if gaze is not None else shape_code.new_zeros((B, cfg.eye_gaze_dim))
+            shape_code = torch.cat([shape_code, g.to(shape_code.dtype)], dim=-1)
         rays = gen_rays(batch_xy, Rmat, Tvec, inv_inmat)
         zb = stratified_zvals(rays, cfg.num_sample_coarse, cfg.world_z1, cfg.world_z2, noise)
         sp = sample_points(rays, zb)
@@ -136,10 +167,26 @@ class HeadNeRF(nn.Module):
                 feat, bg_alpha, depth = maps[..., :-2], maps[..., -2], maps[..., -1]
             comp = CompositeResult(feat, bg_alpha, depth, None)
         else:
-            pe = positional_encoding(sp.pts, cfg.vp_n_freqs, cfg.vp_include_input)
-            feat, density = self.fg_CD_predictor(pe, shape_code, appea_code, audio_style)
-            comp = alpha_composite(feat, density[..., 0], sp.z_dists, sp.zvals)
-        return self._render_maps(comp, B, S)
+            comp = self._plain_composite(self.fg_CD_predictor, sp, shape_code, appea_code,
+                                         audio_style)
+        out = self._render_maps(comp, B, S)
+        if cfg.hier_sampling:
+            fz = fine_zvals(comp.weights, sp.zvals, cfg.num_sample_fine + 1, fine_u)
+            fcomp = self._plain_composite(self.fine_fg_CD_predictor, sample_points(rays, fz),
+                                          shape_code, appea_code, audio_style)
+            out["fine_merge_img"] = self._render_maps(fcomp, B, S)["merge_img"]
+        return out
+
+    def _plain_composite(self, mlp: NeRFMLP, sp: SamplePoints, shape_code, appea_code,
+                         audio_style) -> CompositeResult:
+        """PE (and, with include_vd, the view-direction PE), the MLP and the
+        composite of a set of sample points, in PyTorch ops."""
+        cfg = self.cfg
+        pe = positional_encoding(sp.pts, cfg.vp_n_freqs, cfg.vp_include_input)
+        vd_pe = (positional_encoding(sp.dirs, cfg.vd_n_freqs, cfg.vd_include_input)
+                 if cfg.include_vd else None)
+        feat, density = mlp(pe, shape_code, appea_code, audio_style, vd_pe)
+        return alpha_composite(feat, density[..., 0], sp.z_dists, sp.zvals)
 
     def _render_maps(self, comp: CompositeResult, B: int, S: int) -> Dict[str, torch.Tensor]:
         """Merge with the bg featmap and decode; two decoder passes (merge,
@@ -163,6 +210,12 @@ class HeadNeRF(nn.Module):
             "bg_alpha": bg_alpha,
             "depth": comp.depth.reshape(B, S, S),
         }
+
+
+def options(cfg: NeRFConfig) -> list:
+    """The names of the reference options that `cfg` turns on."""
+    return [name for name in ("include_gaze", "include_vd", "hier_sampling")
+            if getattr(cfg, name)]
 
 
 def build_code_and_cam(

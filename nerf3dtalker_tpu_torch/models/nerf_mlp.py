@@ -9,8 +9,10 @@ cat([pe, code]) @ W == pe @ W_pe + code @ W_code.
 
 Topology (h=384): fea_0 [vp+64 -> h]; fea_1..7 [h -> h] except the skip
 layer fea_5 [h+vp -> h]; density [h -> 1]; rgb_0 [h -> h] (no activation);
-rgb_1 [h+vd -> h//2]; rgb_2 [h//2 -> out]. View-direction conditioning is
-not ported yet.
+rgb_1 [h+vd -> h//2]; rgb_2 [h//2 -> out]. With view-direction
+conditioning (HeadNeRFNet.py:56-60, include_vd) `vd_pe` carries the
+per-point direction encoding and rgb_1's rows are [hidden | vd_pe | appea],
+the reference's cat([x, cat([vd_embed, appea])]).
 """
 
 from __future__ import annotations
@@ -50,10 +52,12 @@ class NeRFMLP(nn.Module):
                 nn.init.zeros_(p)
 
     def forward(self, pe: torch.Tensor, shape_code: torch.Tensor,
-                vd_code: torch.Tensor, audio_style: torch.Tensor
+                vd_code: torch.Tensor, audio_style: torch.Tensor,
+                vd_pe: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """pe [B, ..., P] -> (features [B, ..., out] f32, density [B, ..., 1] f32);
-        codes are [B, C] and broadcast over the point dims."""
+        codes are [B, C] and broadcast over the point dims; `vd_pe`
+        [B, ..., Dv] is the view-direction encoding when it is on."""
         P, S = pe.shape[-1], shape_code.shape[-1]
         if P + S != self.vp_channels:
             raise ValueError(f"pe ({P}) + shape code ({S}) != vp_channels {self.vp_channels}")
@@ -79,8 +83,12 @@ class NeRFMLP(nn.Module):
         density = x @ p["density_kernel"] + p["density_bias"]
         x = x @ p["rgb_0_kernel"] + p["rgb_0_bias"]
         k_r1 = p["rgb_1_kernel"]
-        cb1 = vd_code.to(cdt) @ k_r1[h:] + p["rgb_1_bias"]
-        x = torch.relu(x @ k_r1[:h] + cb1[bc])
+        dv = 0 if vd_pe is None else vd_pe.shape[-1]
+        cb1 = vd_code.to(cdt) @ k_r1[h + dv:] + p["rgb_1_bias"]
+        x = x @ k_r1[:h] + cb1[bc]
+        if vd_pe is not None:
+            x = x + vd_pe.to(cdt) @ k_r1[h:h + dv]
+        x = torch.relu(x)
         rgb = x @ p["rgb_2_kernel"] + p["rgb_2_bias"]
         density = torch.relu(density)
         if self.out_features == 3:

@@ -480,10 +480,12 @@ def fused_render_bwd(
     if err != 0:
         raise RuntimeError(f"fused_render_bwd kernel launch failed: cudaError_t {err}")
     fused_render_bwd.launches += 1
+    fused_render_bwd.input_grads_launches += int(input_grads)
     return (*ins, dw)
 
 
 fused_render_bwd.launches = 0
+fused_render_bwd.input_grads_launches = 0   # the launches with input_grads=True
 
 # the bf16 stash at the head of the backward kernel's scratch: for each
 # name, [B * R * NS, width] values (`csrc/fused_render_bwd.cu:Stash`): pe,

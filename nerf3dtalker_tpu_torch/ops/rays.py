@@ -79,3 +79,38 @@ def sample_points(rays: Rays, zvals: torch.Tensor) -> SamplePoints:
     )
     dirs = rays.directions[..., None, :].expand(pts.shape)
     return SamplePoints(pts=pts, dirs=dirs, zvals=z, z_dists=z_dists)
+
+
+def fine_zvals(
+    weights: torch.Tensor,        # [B, N_r, N_c] coarse compositing weights
+    coarse_zvals: torch.Tensor,   # [B, N_r, N_c] coarse sample parameters (post-trim)
+    n_fine: int,
+    u: Optional[torch.Tensor] = None,   # [B, N_r, n_fine] uniform in [0, 1)
+) -> torch.Tensor:
+    """Hierarchical inverse-CDF importance sampling (reference
+    utils.py:215-256). `n_fine` follows the reference's +1 boundary
+    convention (`num_sample_fine + 1`, utils.py:167). The weights are
+    detached. Without `u` the samples sit at `linspace(0, 1, n_fine)` of the
+    CDF; training passes its own uniform draws. Returns the sorted union of
+    coarse and fine values, [B, N_r, N_c + n_fine], for `sample_points`."""
+    B, N_r, N_c = weights.shape
+    w = weights[..., 1:-1].detach()
+    pdf = w / torch.sum(w + 1e-5, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)     # [B, N_r, N_c - 1]
+    if u is None:
+        u = torch.linspace(0.0, 1.0, n_fine, dtype=weights.dtype, device=weights.device)
+        u = u.expand(B, N_r, n_fine)
+    # searchsorted(side="right"): the count of CDF entries <= u, as the JAX
+    # package's compare-and-count
+    inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=N_c - 2)
+    bins = 0.5 * (coarse_zvals[..., 1:] + coarse_zvals[..., :-1])      # [B, N_r, N_c - 1]
+    cdf_b, cdf_a = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    bin_b, bin_a = torch.gather(bins, -1, below), torch.gather(bins, -1, above)
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_b) / denom
+    fine = bin_b + t * (bin_a - bin_b)
+    return torch.sort(torch.cat([coarse_zvals, fine], dim=-1), dim=-1).values

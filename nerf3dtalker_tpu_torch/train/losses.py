@@ -8,7 +8,8 @@ reference `HeadNeRFLossUtils`, Utils/HeadNeRFLossUtils.py:67-236):
                    background set to the bg value (HeadNeRFLossUtils.py:148-153).
 
 Masked selection (`res_img[mask]`) is a masked mean, as in the JAX package.
-The fitting regularizers are not ported yet.
+The fitting objective adds the camera and code regularizers
+(`cam_reg_loss`, `code_reg_loss`, weighted by `fitting_total_loss`).
 
 Under a (data, rays) mesh each rank sees B/D frames and every loss is a mean
 over the global batch: the masked means divide by the global mask count
@@ -80,3 +81,30 @@ def headnerf_losses(
                                             target_feats=gt_vgg_feats) * share
     losses["total_loss"] = sum(losses.values())
     return losses if data_group is None else _global_values(losses, data_group)
+
+
+def cam_reg_loss(delta_euler: torch.Tensor, delta_tvec: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Camera-offset regularizers of a fit (HeadNeRFLossUtils.py:88-96);
+    the key keeps the reference's spelling."""
+    return {"delta_eular": torch.mean(delta_euler ** 2),
+            "delta_tvec": torch.mean(delta_tvec ** 2)}
+
+
+def code_reg_loss(iden: torch.Tensor, expr: torch.Tensor, appea: torch.Tensor,
+                  bg: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Latent-offset regularizers of a fit (HeadNeRFLossUtils.py:99-122)."""
+    return {"iden_code": torch.mean(iden ** 2),
+            "expr_code": torch.mean(expr ** 2),
+            "appea_code": torch.mean(appea ** 2),
+            "bg_code": torch.mean(bg ** 2) if bg is not None else iden.new_zeros(())}
+
+
+def fitting_total_loss(data_losses: Dict[str, torch.Tensor], cam_losses: Dict[str, torch.Tensor],
+                       code_losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The weighted fitting objective (HeadNeRFLossUtils.py:209-220): 0.001
+    on each camera term and on the iden and appearance codes, 1.0 on expr,
+    0.01 on bg."""
+    total = data_losses["total_loss"]
+    total = total + 0.001 * cam_losses["delta_eular"] + 0.001 * cam_losses["delta_tvec"]
+    return (total + 0.001 * code_losses["iden_code"] + 1.0 * code_losses["expr_code"]
+            + 0.001 * code_losses["appea_code"] + 0.01 * code_losses["bg_code"])

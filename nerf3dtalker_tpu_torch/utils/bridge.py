@@ -7,6 +7,8 @@ A flax tree is the variables dict `{"params": {...}}` of numpy arrays that
 `nerf3dtalker_tpu/utils/convert.py`:
 
   HeadNeRF     fg_CD_predictor/{fea_i,density,rgb_i}_{kernel,bias}  same names
+               (and fine_fg_CD_predictor/... with hier_sampling; gaze and vd
+               widen fea_0 / fea_5 and rgb_1, read at the tree's shapes)
                neural_render/feat_upsample_{i}/layer_{1,2}/{kernel,bias}
                                                -> feat_upsamples.{i}.layer_{1,2}
                neural_render/feat_layer_{i}    -> feat_layers.{i}
@@ -61,7 +63,8 @@ def _linear(d: Mapping, prefix: str) -> Dict[str, np.ndarray]:
 def headnerf_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
     """HeadNeRF flax params -> the port HeadNeRF's state_dict (numpy)."""
     p = _inner(tree)
-    sd = {f"fg_CD_predictor.{k}": _np(v) for k, v in p["fg_CD_predictor"].items()}
+    sd = {f"{mlp}.{k}": _np(v) for mlp in ("fg_CD_predictor", "fine_fg_CD_predictor")
+          if mlp in p for k, v in p[mlp].items()}
     nr = p["neural_render"]
     n_blocks = sum(1 for k in nr if k.startswith("feat_layer_"))
     for i in range(n_blocks):

@@ -1,10 +1,11 @@
 """Camera rigs and pixel-grid helpers (numpy; copy of
-`nerf3dtalker_tpu/utils/camera.py`'s `ray_grid`, `default_inv_inmat` and
-`base_cam`, reference Utils/RenderUtils.py:31-107)."""
+`nerf3dtalker_tpu/utils/camera.py`'s `ray_grid`, `default_inv_inmat`,
+`base_cam` and `orbit_cams`, reference Utils/RenderUtils.py:31-107)."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import math
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
@@ -51,3 +52,30 @@ def base_cam(featmap_size: int, inv_inmat: Optional[np.ndarray] = None) -> CamIn
     if inv_inmat is None:
         inv_inmat = default_inv_inmat(featmap_size)
     return CamInfo(rmat[None], tvec[None], inv_inmat)
+
+
+def orbit_cams(
+    view_num: int, featmap_size: int, inv_inmat: Optional[np.ndarray] = None
+) -> List[CamInfo]:
+    """The 45-view orbit rig used for novel-view GIFs
+    (RenderUtils.py:53-93): cameras on a circle of radius sqrt(tv_x^2) at
+    height tv_z looking at the origin, up = -y."""
+    tv_z = 12.0
+    tv_x = 5.3
+    center = np.zeros(3)
+    radius = math.sqrt(tv_x ** 2)
+    up_ref = np.array([0.0, -1.0, 0.0])
+    if inv_inmat is None:
+        inv_inmat = default_inv_inmat(featmap_size)
+
+    cams = []
+    for angle in np.linspace(0.0, 360.0, view_num):
+        th = angle / 180.0 * math.pi
+        vp = np.array([math.cos(th) * radius, math.sin(th) * radius, tv_z])
+        d1 = center - vp
+        d2 = np.cross(up_ref, d1)
+        d3 = np.cross(d1, d2)
+        d1, d2, d3 = (v / np.linalg.norm(v) for v in (d1, d2, d3))
+        rmat = np.stack([d2, d3, d1], axis=1).astype(np.float32)
+        cams.append(CamInfo(rmat[None], vp.astype(np.float32)[None], inv_inmat))
+    return cams

@@ -83,3 +83,40 @@ def phase_block(i, bf16=False):
         return jax.vjp(fwd, net, rgb, bp)[1]((gn, gr))
 
     return jax.jit(fwd), jax.jit(vjp)
+
+
+@functools.lru_cache(maxsize=None)
+def seeded_headnerf(seed=0, **cfg_kw):
+    """(module, params, cam dict) of HeadNeRF(NeRFConfig(**cfg_kw)) with
+    numpy-seeded weights in the flax tree's shapes: kernels N(0, 2/fan_in),
+    biases N(0, 0.05^2) (nonzero, so every bias path is checked) but the
+    density bias 0.5 + N(0, 0.05^2), the bg featmap 1 + N(0, 0.05^2). The shapes come from `jax.eval_shape` of the
+    init, which traces without compiling."""
+    cfg = NeRFConfig(**cfg_kw)
+    mod = HeadNeRF(cfg)
+    xy, _ = ray_grid(cfg.featmap_size)
+    cam = base_cam(cfg.featmap_size)
+    shapes = jax.eval_shape(
+        mod.init, jax.random.key(seed), batch_xy=jnp.asarray(xy),
+        shape_code=jnp.zeros((1, cfg.shape_code_dims)),
+        appea_code=jnp.zeros((1, cfg.appea_code_dims)),
+        audio_style=jnp.zeros((1, cfg.audio_style_dims)),
+        Rmat=jnp.asarray(cam.Rmat), Tvec=jnp.asarray(cam.Tvec),
+        inv_inmat=jnp.asarray(cam.inv_inmat))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = str(path[-1].key)
+        noise = rng.standard_normal(leaf.shape)
+        if name.endswith("kernel"):
+            value = noise * np.sqrt(2.0 / np.prod(leaf.shape[:-1]))
+        elif name == "bg_featmap":
+            value = 1.0 + 0.05 * noise
+        elif name == "density_bias":   # partly opaque: the MLP's features reach the image
+            value = 0.5 + 0.05 * noise
+        else:
+            value = 0.05 * noise
+        return value.astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(fill, shapes)
+    return mod, params, {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}

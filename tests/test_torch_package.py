@@ -97,6 +97,11 @@ def test_entry_points_without_cuda_raise(no_cuda, tmp_path):
         f.writeframes(np.zeros(4000, np.int16).tobytes())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["animate", "--wav", str(wav), "--out", str(tmp_path / "f.npy")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["fit", "--iters", "1", "--out", str(tmp_path / "fitted.npz")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["render", "--views", "1", "--out", str(tmp_path / "views.npy")])
+    assert not list(tmp_path.glob("fitted.npz")) and not list(tmp_path.glob("views.npy"))
 
 
 def test_cpu_tensor_runs_plain_version_cuda_request_raises(no_cuda):
