@@ -56,6 +56,18 @@ Phases (any failure exits non-zero):
                 the fitted subject (45 views, one K1 each) and `cli animate
                 --latents` serves it (frames equal `animate_sequence` with
                 the fitted codes);
+  4d. vq     — the Standardized Space stage 1 at full width (VQConfig
+                defaults, B=4, 112^2 crops): 4c's subject renders its 40
+                train and 8 val frames through K1, which the port's
+                `build_vq_data` turns into 256^2 frames, crops and AU labels;
+                one step on the card against the same weights and batch on
+                the CPU (loss, code indices, recon, every gradient leaf);
+                200 steps on the card (finite metrics, rec_loss falling;
+                ms/step by CUDA events, 10 steps profiled: device time, idle
+                share); `reconstruct_split` of the val frames (ms/frame);
+                then `cli train-vq` (1 epoch, a checkpoint) and `cli eval-vq
+                --ckpt` (one PNG a frame, metrics equal to
+                `reconstruct_split` in process on that checkpoint);
   5. fused upsampler — serve 8 Reso64 frames through `animate_sequence`
                 with `HeadNeRF(use_fused=True, use_fused_upsampler=True)`
                 (K1 and K5-fwd launches counted, frames held against the
@@ -1112,7 +1124,7 @@ def phase_fit(seed: int, workdir: str):
             "head_loss_final": rec["head_loss"], "head_loss_ratio": head_ratio,
             "delta_euler": fit_vals["delta_euler"][0].tolist(),
             "delta_tvec": fit_vals["delta_tvec"][0].tolist(), "breakdown": parts,
-            "render_wall_s": render_wall, "phase_s": phase_s,
+            "render_wall_s": render_wall, "phase_s": phase_s, "ckpt_dir": ckpt_dir,
             "k1_fit": k1, "k2_fit": k2, "k1_render": k1_render, "k1_animate": k1_animate}
 
 
@@ -1166,7 +1178,7 @@ def fit_breakdown(model, problem, seed: int):
         kernels = device_launches_by_kernel(lambda: fr.fused_render_bwd(
             pe, zd, zv, packed, gf, gb, gd, input_grads=True), calls=3)
     # device ms of each of K2's three launches, per launch the profiler
-    # recorded (at this shape it has recorded one call's launches of three)
+    # recorded
     k2_parts = None
     if kernels:
         k2_parts = {}
@@ -1202,6 +1214,249 @@ def fit_breakdown(model, problem, seed: int):
                                                if part in k) for part in K2_PARTS}
         log("fit_profile K2 parts, device ms an iteration: " + json.dumps(rec["k2_parts_in_fit_ms"]))
     return rec
+
+
+# the vq phase: the Standardized Space stage 1 at full width (VQConfig
+# defaults: img 256, hidden 512, 6 + 6 layers, codebooks 8192 / 500), B=4,
+# on 112^2 crops of the fit subject's renders
+VQ_BATCH = 4
+VQ_STEPS = 200
+VQ_TIMED_FROM = 20        # ms/step over the steps after these
+VQ_PROFILE_STEPS = 10
+# one deterministic step on the card against the same weights and batch on
+# the CPU, both f32 (cuDNN's TF32 off for this comparison): the total loss
+# within VQ_LOSS_RTOL relative; at least VQ_INDEX_AGREE of the image-code
+# indices equal (an argmin near a tie can flip: the codebook entries are
+# ~1/8192 next to ||z||^2 of O(10-100), so the f32 rounding of the sum
+# decides between two codes a few ulps apart); where all of a frame's
+# indices agree, its recon within VQ_RECON_RTOL of max|ref|; every leaf's
+# gradient within VQ_GRAD_REL_L2 relative L2, the image codebook without
+# the rows that flipped indices touch (a flipped token's straight-through
+# code pulls another row), and the bias of a conv that feeds an instance
+# norm (`vq_trainer.norm_fed_convs`) relative to the mass of the terms its
+# gradient sums (`bias_term_mass` on the CPU): the norm takes each channel's
+# mean out, so that sum cancels, to 0 for the AU classifiers' convs and to
+# what the leaky ReLU's knee leaves for the squasher's and the expander's,
+# and its rounding scales with the terms, not the sum (on the CPU, f32
+# against f64 at the card test's config, `tests/_vq_bias_conditioning.py`:
+# the classifiers' <= 2.7e-8 of the mass, the squasher's 8.9e-5 - 3.1e-3,
+# the expander's 1.7e-4 - 7.3e-3; the expander's 9.5e-2 of its own size on
+# the first card run)
+VQ_LOSS_RTOL = 1e-3
+VQ_INDEX_AGREE = 0.99
+VQ_RECON_RTOL = 1e-2
+VQ_GRAD_REL_L2 = 1e-2
+# `cli eval-vq --ckpt` against `reconstruct_split` in this process on the
+# checkpoint's weights: the same calls on the same card, so equal but for a
+# sum order the card might change between two runs of one kernel
+VQ_CLI_RTOL = 1e-6
+
+
+def vq_step_on(vq, au, batch):
+    """(total loss, out, {name: gradient}, {name: term mass}) of one stage-1
+    step's loss on the modules' device; the mass is `bias_term_mass`'s for
+    the biases of `norm_fed_convs`."""
+    from nerf3dtalker_tpu_torch.train.vq_trainer import bias_term_mass, norm_fed_convs, vq_loss
+
+    for m in (vq, au):
+        m.zero_grad(set_to_none=True)
+    with bias_term_mass(norm_fed_convs(vq, au)) as mass:
+        total, _, out = vq_loss(vq, au, batch)
+        total.backward()
+    grads = {f"vq.{k}": p.grad for k, p in vq.named_parameters()}
+    grads.update({f"au.{k}": p.grad for k, p in au.named_parameters()})
+    return float(total.detach()), out, grads, mass
+
+
+def phase_vq(seed: int, workdir: str, ckpt_dir: str):
+    """The Standardized Space stage 1 on the fit subject's renders: one step
+    on the card against the CPU, 200 steps (timed, profiled), the
+    reconstruction of the val split, and `cli train-vq` / `cli eval-vq`."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.config import VQConfig
+    from nerf3dtalker_tpu_torch.data.dataset import coherent_subject, talking_signals
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.scripts import train_r05, vq_run
+    from nerf3dtalker_tpu_torch.train.trainer import Trainer
+    from nerf3dtalker_tpu_torch.train.vq_eval import reconstruct_split
+    from nerf3dtalker_tpu_torch.train.vq_trainer import BATCH_KEYS, build_vq_step, to_batch
+    from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint
+
+    t_phase = time.perf_counter()
+
+    def at():   # seconds into the phase
+        return f"[{time.perf_counter() - t_phase:.1f} s]"
+
+    # 1. the subject's 40 train and 8 val frames rendered through K1
+    cfg = train_config()
+    train = coherent_subject(cfg, SUBJECT_FRAMES, t0=0)
+    val = coherent_subject(cfg, SUBJECT_VAL_FRAMES, t0=SUBJECT_FRAMES)
+    t = Trainer.from_checkpoint(ckpt_dir, train, val, device=DEVICE)
+    fr.fused_render_fwd.launches = 0
+    _, train_renders = train_r05.eval_split(t, train)
+    _, val_renders = train_r05.eval_split(t, val)
+    k1_renders = fr.fused_render_fwd.launches
+    del t
+    renders_s = time.perf_counter() - t_phase
+    a_tr, b_tr = talking_signals(SUBJECT_FRAMES, t0=0)
+    a_va, b_va = talking_signals(SUBJECT_VAL_FRAMES, t0=SUBJECT_FRAMES)
+    renders = {"train_render": train_renders, "train_gt": train.arrays["images"],
+               "train_mask": train.arrays["head_mask"], "val_render": val_renders,
+               "val_gt": val.arrays["images"], "val_mask": val.arrays["head_mask"],
+               "a_train": a_tr, "b_train": b_tr, "a_val": a_va, "b_val": b_va}
+    data = vq_run.build_vq_data(renders, "train")
+    vdata = vq_run.build_vq_data(renders, "val")
+    vcfg = VQConfig(img_size=int(data["gen_img"].shape[1]))
+    log(f"vq {at()}: the fit subject rendered its {SUBJECT_FRAMES} train and "
+        f"{SUBJECT_VAL_FRAMES} val frames through K1 ({k1_renders} launches, expected "
+        f"{(SUBJECT_FRAMES + SUBJECT_VAL_FRAMES) // 2}) in {renders_s:.1f} s (the trainer "
+        f"rebuilt from the checkpoint included); VQ data {list(data['gen_img'].shape)}, "
+        f"crops {list(data['crops'].shape)}; VQConfig defaults at img {vcfg.img_size}")
+    if k1_renders != (SUBJECT_FRAMES + SUBJECT_VAL_FRAMES) // 2:
+        raise AssertionError(f"vq renders: K1 launches {k1_renders}")
+
+    # 2. one step on the card against the CPU, the same weights and batch
+    dev = torch.device(DEVICE)
+    init, train_step, _ = build_vq_step(vcfg, device=dev)
+    batch = to_batch(data, dev, slice(0, VQ_BATCH))
+    state = init(torch.Generator().manual_seed(seed), batch)
+    ref_vq, ref_au = (copy.deepcopy(m).cpu() for m in (state.vq, state.au))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        loss_g, out_g, grads_g, _ = vq_step_on(state.vq, state.au, batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    t0 = time.perf_counter()
+    loss_c, out_c, grads_c, mass_c = vq_step_on(ref_vq, ref_au,
+                                                {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    idx_g, idx_c = out_g.indices.cpu(), out_c.indices
+    same = idx_g == idx_c
+    agree = float(same.float().mean())
+    whole = same.all(dim=1)
+    recon_err = (float((out_g.recon.detach().cpu()[whole] - out_c.recon.detach()[whole]).abs().max()
+                       / out_c.recon.detach()[whole].abs().max()) if whole.any() else float("nan"))
+    flipped_rows = torch.unique(torch.cat([idx_g[~same], idx_c[~same]]))
+    errs = {}
+    for k, gc in grads_c.items():
+        gg, scale = grads_g[k].cpu(), gc.norm()
+        if k == "vq.quantize.embedding" and len(flipped_rows):
+            keep = torch.ones(len(gc), dtype=torch.bool)
+            keep[flipped_rows] = False
+            gg, gc, scale = gg[keep], gc[keep], gc[keep].norm()
+        if k in mass_c:   # a sum that cancels: against the mass of its terms
+            scale = mass_c[k].norm()
+        errs[k] = float((gg - gc).norm() / scale.clamp_min(1e-30))
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"vq {at()} step, card vs CPU (f32; cuDNN TF32 off for this comparison, {tf32} by default; "
+        f"matmul TF32 {torch.backends.cuda.matmul.allow_tf32}): loss {loss_g:.6f} vs {loss_c:.6f}, "
+        f"rel {loss_rel:.2e} (tolerance {VQ_LOSS_RTOL:.0e}); image-code indices equal "
+        f"{agree:.5f} (limit {VQ_INDEX_AGREE}), {int((~same).sum())} flipped of {same.numel()}, "
+        f"codebook rows left out {len(flipped_rows)}; frames with every index equal "
+        f"{int(whole.sum())} of {len(whole)}, their recon {recon_err:.2e} of max|ref| (tolerance "
+        f"{VQ_RECON_RTOL:.0e}); gradient rel L2, worst leaves "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst)
+        + f" (tolerance {VQ_GRAD_REL_L2:.0e}, {len(errs)} leaves); the CPU step {cpu_s:.1f} s")
+    if not (loss_rel <= VQ_LOSS_RTOL and agree >= VQ_INDEX_AGREE
+            and (not whole.any() or recon_err <= VQ_RECON_RTOL)
+            and max(errs.values()) <= VQ_GRAD_REL_L2):
+        raise AssertionError("vq: the step on the card disagrees with the CPU")
+    del ref_vq, ref_au, grads_c, grads_g, out_g, out_c
+
+    # 3. 200 steps on the card: every metric finite, rec_loss falling
+    dev_data = to_batch(data, dev)
+    order = torch.as_tensor(vq_run.orders(len(data["gen_img"]), VQ_BATCH, VQ_STEPS, seed),
+                            device=dev)
+    history = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, idx in enumerate(order):
+        if i == VQ_TIMED_FROM:
+            ev[0].record()
+        state, m = train_step(state, {k: v[idx] for k, v in dev_data.items()})
+        history.append(m)
+    ev[1].record()
+    ev[1].synchronize()
+    steps_s = time.perf_counter() - t0
+    ms_step = ev[0].elapsed_time(ev[1]) / (VQ_STEPS - VQ_TIMED_FROM)
+    hist = {k: [float(h[k]) for h in history] for k in history[0]}
+    finite = all(math.isfinite(v) for vals in hist.values() for v in vals)
+    log(f"vq {at()}: {VQ_STEPS} steps in {steps_s:.1f} s; {ms_step:.2f} ms a step (CUDA "
+        f"events, steps "
+        f"{VQ_TIMED_FROM}-{VQ_STEPS}); rec_loss {hist['rec_loss'][0]:.5f} -> "
+        f"{hist['rec_loss'][-1]:.5f}, quant_loss {hist['quant_loss'][0]:.4f} -> "
+        f"{hist['quant_loss'][-1]:.4f}, au_loss {hist['au_loss'][0]:.4f} -> "
+        f"{hist['au_loss'][-1]:.4f}, perplexity {hist['perplexity'][-1]:.1f}")
+    if not finite or not hist["rec_loss"][-1] < hist["rec_loss"][0]:
+        raise AssertionError("vq: a non-finite metric, or rec_loss did not fall")
+    b = {k: v[:VQ_BATCH] for k, v in dev_data.items()}
+    profile = profile_steps(lambda: train_step(state, b), steps=VQ_PROFILE_STEPS,
+                            label="vq_profile", host_ops=False)
+
+    # 4. the val split reconstructed (ms a frame), then the CLI round trip
+    reconstruct_split(state.vq, state.au, vdata)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    rec_metrics = reconstruct_split(state.vq, state.au, vdata)
+    ev[1].record()
+    ev[1].synchronize()
+    ms_frame = ev[0].elapsed_time(ev[1]) / len(vdata["gen_img"])
+    log(f"vq {at()}: reconstruct_split of the {len(vdata['gen_img'])} val frames, "
+        f"{ms_frame:.2f} ms a "
+        f"frame (CUDA events; the host's copies included); rec_psnr {rec_metrics['rec_psnr']:.3f} "
+        f"dB, rec_l1 {rec_metrics['rec_l1']:.5f} after {VQ_STEPS} steps")
+    own_vq, own_au = state.vq, state.au   # the checkpoint's config and crop: reloaded below
+    del state, dev_data
+    split, vsplit = (os.path.join(workdir, n) for n in ("vq_train.npz", "vq_val.npz"))
+    np.savez(split, **{k: data[k] for k in BATCH_KEYS})
+    np.savez(vsplit, **{k: vdata[k] for k in BATCH_KEYS})
+    ck, gen_plus = (os.path.join(workdir, n) for n in ("vq_ckpt", "gen+"))
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(gen_plus, ignore_errors=True)
+    t0 = time.perf_counter()
+    trec = cli.main(["train-vq", "--data", split, "--img-size", str(vcfg.img_size), "--epochs",
+                     "1", "--batch-size", str(VQ_BATCH), "--seed", str(seed), "--ckpt-dir", ck,
+                     "--device", DEVICE])
+    erec = cli.main(["eval-vq", "--data", vsplit, "--ckpt", ck, "--out", gen_plus,
+                     "--device", DEVICE])
+    cli_s = time.perf_counter() - t0
+    payload = load_checkpoint(ck, map_location="cpu")
+    if VQConfig(**payload["config"]) != vcfg or payload["crop_size"] != data["crops"].shape[2]:
+        raise AssertionError("vq: cli train-vq wrote another config than the phase's")
+    own_vq.load_state_dict(payload["vq"])
+    own_au.load_state_dict(payload["au"])
+    own_metrics = reconstruct_split(own_vq, own_au, vdata)
+    pngs = sorted(os.listdir(gen_plus))
+    diffs = {k: abs(erec[k] - v) / max(abs(v), 1e-30) for k, v in own_metrics.items()}
+    log(f"vq {at()}: cli train-vq (1 epoch, {len(data['gen_img']) // VQ_BATCH} steps, last "
+        f"total_loss "
+        f"{trec['total_loss']:.4f}) then cli eval-vq --ckpt: {len(pngs)} PNGs (expected "
+        f"{len(vdata['gen_img'])}), rec_psnr {erec['rec_psnr']:.3f} dB, rec_l1 "
+        f"{erec['rec_l1']:.5f}; against reconstruct_split in process on the checkpoint's state, "
+        f"relative {diffs} (tolerance {VQ_CLI_RTOL:.0e}); both commands {cli_s:.1f} s")
+    if len(pngs) != len(vdata["gen_img"]) or max(diffs.values()) > VQ_CLI_RTOL \
+            or not all(map(math.isfinite, (erec["rec_psnr"], erec["rec_l1"], trec["total_loss"]))):
+        raise AssertionError("vq: the CLI round trip")
+    phase_s = time.perf_counter() - t_phase
+    log(f"vq: phase {phase_s:.1f} s")
+    return {"k1_renders": k1_renders, "step_parity": {
+                "loss_rel": loss_rel, "index_agreement": agree, "flipped": int((~same).sum()),
+                "recon_rel": recon_err, "grad_rel_l2_max": max(errs.values()),
+                "worst": dict(worst), "cudnn_tf32_default": tf32},
+            "steps": VQ_STEPS, "ms_per_step": ms_step, "rec_loss": [hist["rec_loss"][0],
+                                                                    hist["rec_loss"][-1]],
+            "profile": profile, "reconstruct_ms_per_frame": ms_frame,
+            "reconstruct": rec_metrics, "cli": {"train_vq": trec, "eval_vq": {
+                k: erec[k] for k in own_metrics}}, "phase_s": phase_s}
 
 
 def _train_setup(seed: int, use_fused: bool = True):
@@ -1337,16 +1592,44 @@ def phase_train_breakdown(seed: int):
     return rec
 
 
-def device_ms_by_kernel(fn, calls: int):
+# torch.profiler keeps a kernel only if its device timestamp, mapped onto
+# the host's clock, falls inside the session's window, and on the card's
+# machine that mapping strays by milliseconds up to 150 ms as a process
+# ages: a short window then loses some or all of its kernels. Each session
+# sleeps this long, the device idle, after it starts and before it stops
+# (`nerf3dtalker_tpu_torch/scripts/profiler_window.py`: 3 matmuls, no
+# padding, lost all from 50 s of age on; 0.3 s, most; 2 s kept all 3 at
+# every age to 170 s). The measured windows lie inside.
+PROFILE_PAD_S = 2.0
+
+
+@contextlib.contextmanager
+def padded_profile(activities):
+    """A torch.profiler session over `activities` padded by PROFILE_PAD_S on
+    each side."""
+    import torch
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def device_ms_by_kernel(fn, calls: int, host_ops: bool = True):
     """(device ms by kernel name per call of fn over `calls` calls, the
     window's wall ms) from torch.profiler after one warm call; the kernel
-    dict is empty when the profiler records no device time."""
+    dict is empty when the profiler records no device time. `host_ops=False`
+    records the device's activity alone (the VQ step's thousands of host
+    ops a step take seconds to record and sort)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with padded_profile(activities) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -1355,17 +1638,20 @@ def device_ms_by_kernel(fn, calls: int):
     kernels = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+        # a user annotation on the device (the fused optimizer's step) spans
+        # kernels that are counted themselves
+        if us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / calls
     return kernels, wall_ms
 
 
-def profile_steps(step, steps: int, label: str = "train_profile"):
+def profile_steps(step, steps: int, label: str = "train_profile", host_ops: bool = True):
     """Device time by kernel over `steps` steady steps (torch.profiler), and
     the device's busy share of the window's wall time. The profiler's own
     host overhead lengthens the window, so the idle share is an upper
     bound. Returns None when the profiler records no device time."""
-    kernels, wall_ms = device_ms_by_kernel(step, steps)
+    kernels, wall_ms = device_ms_by_kernel(step, steps, host_ops)
     if not kernels:
         log(f"{label}: the profiler recorded no device time (not measured)")
         return None
@@ -1432,18 +1718,19 @@ def device_launches_by_kernel(fn, calls: int):
     calls (torch.profiler, after one warm call); empty when the profiler
     records no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with padded_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+        if us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             ms, n = out.get(e.key, (0.0, 0.0))
             out[e.key] = (ms + us / 1e3 / calls, n + e.count / calls)
     return out
@@ -2189,6 +2476,7 @@ def main() -> int:
     step = phase_train_breakdown(args.seed)
     subject = phase_subject(args.seed, workdir)
     fit = phase_fit(args.seed, workdir)
+    vq = phase_vq(args.seed, workdir, fit.pop("ckpt_dir"))
     k5f, k5b = phase_upsampler_kernels(args.seed, build_info["ptxas"])
     ups_serving = phase_serving_upsampler(args.seed, FRAMES, workdir)
     ups_grad = phase_gradient_upsampler(args.seed)
@@ -2219,7 +2507,7 @@ def main() -> int:
                               "subject_validation": subject["k1_validation"],
                               "subject_animate": subject["k1_animate"],
                               "fit": fit["k1_fit"], "render": fit["k1_render"],
-                              "fit_animate": fit["k1_animate"]}
+                              "fit_animate": fit["k1_animate"], "vq_renders": vq["k1_renders"]}
     k2["launches_by_path"] = {"train_steps": train["k2"],
                               "gradient_fused_upsampler": ups_grad["k2"],
                               "subject_train_steps": subject["k2"], "fit": fit["k2_fit"]}
@@ -2241,7 +2529,7 @@ def main() -> int:
                     "fused_upsampler": {"serving": ups_serving, "gradient": ups_grad},
                     "training": {"steps": train["steps"], "ms_per_step": step["ms_per_step"],
                                  "rays_per_s": step["rays_per_s"], "parity": parity},
-                    "subject": subject, "fit": fit,
+                    "subject": subject, "fit": fit, "vq": vq,
                     "mesh": {"epoch_2x2": mesh_train, "parity": mesh_parity, "nccl_1x1": nccl},
                     "build_s": build_info["build_s"], "nvcc": build_info["nvcc"]}))
     log(f"smoke: every phase in {time.perf_counter() - t_start:.1f} s")

@@ -18,6 +18,12 @@
             or --ckpt); writes fitted.npz with the JAX `fit`'s keys
   render  — the 45-view orbit of a subject (--latents fitted.npz, or
             seeded codes) as an .npy of frames
+  train-vq — train the Standardized Space stage 1 (the VQ autoencoder and
+            the five AU classifiers) on an .npz of gen_img / gt_img / mask /
+            crops / au_labels (or random batches), one JSON line an epoch;
+            --ckpt-dir writes the port's checkpoint of both modules
+  eval-vq — reconstruct a split through stage 1 (a train-vq --ckpt, else
+            seeded weights): gen+ PNGs into --out, metrics as one JSON line
 
 Runs on `cuda` unless `--device cpu` is given. On the GPU HeadNeRF computes
 in bf16 through the fused render kernels; on the CPU in f32 through the
@@ -403,6 +409,135 @@ def _spawn_train(args, world: int) -> dict:
         shutil.rmtree(rdv, ignore_errors=True)
 
 
+# VQConfig fields that the VQ commands' flags set: flag dest -> field
+VQ_FIELDS = {"img_size": "img_size", "hidden": "hidden_size", "embed_dim": "embed_dim",
+             "n_embed": "n_embed", "layers": "num_hidden_layers"}
+# the JAX CLI's defaults of those flags, by command
+TRAIN_VQ_DEFAULTS = {"img_size": 256, "hidden": 512, "embed_dim": 64, "n_embed": 8192, "layers": 6}
+EVAL_VQ_DEFAULTS = {"img_size": 256, "hidden": 64, "embed_dim": 64, "n_embed": 256, "layers": 1}
+
+
+def _vq_config(flags: dict):
+    from nerf3dtalker_tpu_torch.config import VQConfig
+
+    return VQConfig(**{field: flags[dest] for dest, field in VQ_FIELDS.items()})
+
+
+def _vq_random_split(img_size: int, random_labels: bool) -> dict:
+    """The JAX VQ commands' stand-in data without --data: 4 random frames
+    and 112^2 crops from numpy seed 0; random AU labels (train-vq) or all
+    ones (eval-vq)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    S = img_size
+    data = {"gen_img": rng.uniform(0, 1, (4, S, S, 3)).astype(np.float32),
+            "gt_img": rng.uniform(0, 1, (4, S, S, 3)).astype(np.float32),
+            "mask": np.ones((4, S, S, 1), np.float32),
+            "crops": rng.uniform(0, 1, (4, 5, 112, 112, 3)).astype(np.float32)}
+    data["au_labels"] = ((rng.uniform(0, 1, (4, 5)) > 0.5) if random_labels
+                         else np.ones((4, 5))).astype(np.float32)
+    return data
+
+
+def cmd_train_vq(args) -> dict:
+    """Standardized Space stage 1 training (StandardizedSpace/main/
+    train_vq.py, JAX `cli.py:cmd_train_vq`): --epochs passes over the
+    frames in batches of --batch-size (numpy seed = epoch for the order),
+    one JSON line of the epoch's last step metrics each. --ckpt-dir writes
+    the port's checkpoint (`torch.save`: the VQConfig, the crop size and
+    both modules' state) after the last epoch; the JAX command writes
+    none."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch.train.vq_trainer import BATCH_KEYS, build_vq_step, to_batch
+    from nerf3dtalker_tpu_torch.utils.checkpoints import save_checkpoint
+    from nerf3dtalker_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = _vq_config(vars(args))
+    init, train_step, _ = build_vq_step(cfg, lr=args.lr, device=dev)
+    if args.data:
+        with np.load(args.data) as z:
+            data = {k: z[k] for k in BATCH_KEYS}
+    else:
+        print("no --data; sanity run on random batches")
+        data = _vq_random_split(args.img_size, random_labels=True)
+    N = len(data["gen_img"])
+    bs = min(args.batch_size, N)
+    state = init(torch.Generator().manual_seed(args.seed), to_batch(data, dev, slice(0, bs)))
+    rec = {}
+    for ep in range(args.epochs):
+        order = np.random.default_rng(ep).permutation(N)
+        for i in range(0, N - bs + 1, bs):
+            state, m = train_step(state, to_batch(data, dev, order[i : i + bs]))
+        rec = {"epoch": ep, **{k: float(v) for k, v in m.items()}}
+        print(json.dumps(rec))
+    if args.ckpt_dir:
+        path = save_checkpoint(args.ckpt_dir, {
+            "config": dataclasses.asdict(cfg), "crop_size": int(data["crops"].shape[2]),
+            "vq": state.vq.state_dict(), "au": state.au.state_dict()}, state.step)
+        rec = {**rec, "ckpt": path}
+        print(json.dumps({"ckpt": path, "step": state.step}))
+    return rec
+
+
+def cmd_eval_vq(args) -> dict:
+    """Stage-1 reconstruction of a split (StandardizedSpace/main/test_vq.py:
+    52-150, JAX `cli.py:cmd_eval_vq`): an .npz with gen_img / mask / crops
+    (+ optional gt_img) -> AU-conditioned VQ reconstructions as `gen+`
+    PNGs in --out, metrics as one JSON line. The weights come from --ckpt
+    (a train-vq --ckpt-dir, whose VQConfig is used; a flag typed on the
+    command line that disagrees with it raises), else seeded from --seed
+    with the flags, or the JAX eval-vq defaults where a flag is not given."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch.config import VQConfig
+    from nerf3dtalker_tpu_torch.train.vq_eval import reconstruct_split
+    from nerf3dtalker_tpu_torch.train.vq_trainer import init_modules
+    from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint
+    from nerf3dtalker_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    flags = {d: getattr(args, d) for d in VQ_FIELDS if getattr(args, d) is not None}
+    state = load_checkpoint(args.ckpt, map_location="cpu") if args.ckpt else None
+    if state is not None:
+        cfg = VQConfig(**state["config"])
+        clash = {VQ_FIELDS[d]: (getattr(cfg, VQ_FIELDS[d]), v) for d, v in flags.items()
+                 if getattr(cfg, VQ_FIELDS[d]) != v}
+        if clash:
+            raise SystemExit(f"--ckpt {args.ckpt}: its VQConfig disagrees with the flags "
+                             f"(field: (checkpoint, flag)) {clash}")
+    else:
+        cfg = _vq_config({**EVAL_VQ_DEFAULTS, **flags})
+    if args.data:
+        with np.load(args.data) as z:
+            data = {k: z[k] for k in z.files}
+    else:
+        print("no --data; smoke run on random frames")
+        data = _vq_random_split(cfg.img_size, random_labels=False)
+    if state is not None:
+        if state["crop_size"] != data["crops"].shape[2]:
+            raise SystemExit(f"--ckpt {args.ckpt}: its AU classifiers take {state['crop_size']}^2 "
+                             f"crops, the data has {data['crops'].shape[2]}^2")
+    vq, au = init_modules(cfg, data["crops"].shape[2], dev,
+                          torch.Generator().manual_seed(args.seed))
+    if state is not None:
+        vq.load_state_dict(state["vq"])
+        au.load_state_dict(state["au"])
+    out_dir = args.out or "./gen+"
+    metrics = reconstruct_split(vq, au, data, out_dir=out_dir)
+    rec = {"out_dir": out_dir, **metrics, "config": dataclasses.asdict(cfg)}
+    print(json.dumps({"out_dir": out_dir, **metrics}))
+    return rec
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="nerf3dtalker_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -485,6 +620,33 @@ def main(argv=None):
     pr.add_argument("--latents", help="fitted.npz from `fit`: orbit the fitted subject")
     pr.add_argument("--out", help="default novel_views.npy")
     pr.set_defaults(fn=cmd_render)
+
+    def vq_flags(sp, defaults, note=""):
+        sp.add_argument("--img-size", type=int, default=defaults["img_size"], help=note)
+        sp.add_argument("--seed", type=int, default=0, help="seed of the weights' init")
+        sp.add_argument("--data", default="", help="npz: gen_img, gt_img, mask [N,H,W,1], "
+                        "crops [N,5,S,S,3], au_labels [N,5]; without it random frames")
+        sp.add_argument("--hidden", type=int, default=defaults["hidden"], help=note)
+        sp.add_argument("--embed-dim", type=int, default=defaults["embed_dim"], help=note)
+        sp.add_argument("--n-embed", type=int, default=defaults["n_embed"], help=note)
+        sp.add_argument("--layers", type=int, default=defaults["layers"], help=note)
+        sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    pv = sub.add_parser("train-vq", help="train the Standardized Space stage 1")
+    vq_flags(pv, TRAIN_VQ_DEFAULTS)
+    pv.add_argument("--batch-size", type=int, default=1)
+    pv.add_argument("--epochs", type=int, default=60)
+    pv.add_argument("--lr", type=float, default=1e-4)
+    pv.add_argument("--ckpt-dir", default="", help="write a checkpoint here after training")
+    pv.set_defaults(fn=cmd_train_vq)
+
+    pev = sub.add_parser("eval-vq", help="test_vq: reconstruct a split -> gen+/")
+    vq_flags(pev, dict.fromkeys(EVAL_VQ_DEFAULTS),
+             note="default: the --ckpt's config, else the JAX eval-vq default")
+    pev.add_argument("--ckpt", default="", help="checkpoint directory of train-vq "
+                     "(its newest checkpoint; its VQConfig is used)")
+    pev.add_argument("--out", default="", help="PNG directory (default ./gen+)")
+    pev.set_defaults(fn=cmd_eval_vq)
 
     args = p.parse_args(argv)
     # the flags set on the command line, not left at their parser default

@@ -1,6 +1,6 @@
 """Model, audio and training configuration (copy of
 `nerf3dtalker_tpu/config.py`'s `NeRFConfig`, `reso32`, `reso64`,
-`AudioConfig` and `TrainConfig`).
+`AudioConfig`, `TrainConfig` and `VQConfig`).
 
 Frozen dataclasses; field semantics mirror the reference HeadNeRF options
 (HeadNeRFOptions.py:5-34) and the audio hparams (hparams.py:15-60).
@@ -157,3 +157,24 @@ class TrainConfig:
     guard_policy: str = "warn"
     # validate and checkpoint every k-th epoch and after the last one
     val_every: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class VQConfig:
+    """Standardized-Space VQ-VAE (copy of the JAX `VQConfig`; reference
+    stage1_vocaset.py:11-27 + config/vocaset/stage1.yaml)."""
+
+    in_dim: int = 3
+    hidden_size: int = 512
+    embed_dim: int = 64
+    n_embed: int = 8192          # image codebook
+    n_embed_au: int = 500        # AU codebook
+    num_hidden_layers: int = 6
+    num_attention_heads: int = 8
+    intermediate_size: int = 1536
+    beta: float = 0.25
+    img_size: int = 256
+    quant_factor: int = 0        # temporal squash factor of the conv squasher
+    face_quan_num: int = 8       # codes per face token group
+    au_dim: int = 256            # AU classifier feature width fed to codebook
+    n_au: int = 5                # AU10/14/20/25/26

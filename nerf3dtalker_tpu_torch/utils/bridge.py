@@ -18,8 +18,12 @@ A flax tree is the variables dict `{"params": {...}}` of numpy arrays that
                rnn/l{k}_{fwd,bwd}/h{i,f,g,o}/{kernel,bias} -> weight_hh, bias_hh
                (bias_ih = 0); linear{1,2,3}/{kernel,bias}  -> linear{1,2,3}
   VGG16        conv{idx}/{kernel,bias}          -> features.{idx}.{weight,bias}
+  VQAutoEncoder  the same module paths, block_{i} -> blocks.{i}; LayerNorm
+               scale -> weight; quantize{,_au}/embedding the same
+  AUClassifier stacked [n_au, ...] leaves -> classifier i of the ModuleList;
+               linear0's rows from the NHWC flatten to the NCHW one
 Dense kernels are [in, out]; torch Linear weights are [out, in]. Conv
-kernels are HWIO; torch Conv2d weights are OIHW.
+kernels are HWIO (WIO in 1-d); torch Conv2d weights are OIHW (Conv1d OIW).
 """
 
 from __future__ import annotations
@@ -105,6 +109,52 @@ def vgg16_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
         idx = name[len("conv"):]
         sd[f"features.{idx}.weight"] = np.transpose(_np(conv["kernel"]), (3, 2, 0, 1))
         sd[f"features.{idx}.bias"] = _np(conv["bias"])
+    return sd
+
+
+def _torch_leaf(name: str, x) -> tuple:
+    """(torch name, value) of a flax leaf: kernels of a Dense [in, out],
+    Conv1d [k, in, out] or Conv2d [kh, kw, in, out] in torch's layout;
+    LayerNorm's scale as weight."""
+    x = _np(x)
+    if name == "kernel":
+        return "weight", np.transpose(x, {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[x.ndim])
+    return ("weight" if name == "scale" else name), x
+
+
+def _flat_state_dict(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    sd = {}
+    for name, node in tree.items():
+        if isinstance(node, Mapping):
+            part = f"blocks.{name[len('block_'):]}" if name.startswith("block_") else name
+            sd.update(_flat_state_dict(node, f"{prefix}{part}."))
+        else:
+            key, value = _torch_leaf(name, node)
+            sd[prefix + key] = value
+    return sd
+
+
+def vq_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
+    """VQAutoEncoder flax params -> the port VQAutoEncoder's state_dict."""
+    return _flat_state_dict(_inner(tree))
+
+
+def au_classifiers_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX step's stacked AUClassifier params ([n_au, ...] leaves) ->
+    the state_dict of the port's ModuleList of n_au classifiers. linear0's
+    rows go from the NHWC flatten (h, w, c) to the NCHW one (c, h, w): the
+    inverse of `nerf3dtalker_tpu/utils/convert.py:convert_au_classifier`."""
+    p = _inner(tree)
+    n_au = len(p["linear0"]["kernel"])
+    sd = {}
+    for i in range(n_au):
+        one = {mod: {k: _np(v)[i] for k, v in leaves.items()} for mod, leaves in p.items()}
+        k0 = one["linear0"]["kernel"]                    # [h * w * c, out]
+        c = _np(p["conv4"]["kernel"]).shape[-1]
+        side = int(round((k0.shape[0] // c) ** 0.5))
+        one["linear0"]["kernel"] = (k0.reshape(side, side, c, -1).transpose(2, 0, 1, 3)
+                                    .reshape(k0.shape[0], -1))
+        sd.update(_flat_state_dict(one, f"{i}."))
     return sd
 
 

@@ -4,6 +4,7 @@ the 2x640 BiLSTM and of a full-width HeadNeRF takes seconds to compile on
 the CPU."""
 
 import functools
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +14,42 @@ from nerf3dtalker_tpu.config import NeRFConfig
 from nerf3dtalker_tpu.models import HeadNeRF
 from nerf3dtalker_tpu.models.audio import Audio2Style
 from nerf3dtalker_tpu.utils.camera import base_cam, ray_grid
+
+
+def by_content(fn):
+    """`fn` memoized for the process on the content of its arguments:
+    arrays (numpy or JAX, anywhere in a pytree) by their shape, dtype and
+    bytes, anything else by its repr. For a JAX reference that tests in
+    several files compute from the same inputs."""
+    cache = {}
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        h = hashlib.blake2b(digest_size=16)
+        for leaf in jax.tree_util.tree_leaves((args, sorted(kw.items()))):
+            if hasattr(leaf, "shape"):
+                a = np.ascontiguousarray(leaf)
+                h.update(repr((a.shape, a.dtype.str)).encode())
+                h.update(a.tobytes())
+            else:
+                h.update(repr(leaf).encode())
+        key = h.digest()
+        if key not in cache:
+            cache[key] = fn(*args, **kw)
+        return cache[key]
+
+    return wrapper
+
+
+class JittedApply:
+    """A JAX model whose `apply` is jitted. JAX's `fit_single_image`
+    evaluates its final losses eagerly, which compiles each op of the
+    forward on its own; through this it compiles the forward once (the same
+    ops)."""
+
+    def __init__(self, model):
+        self.cfg = model.cfg
+        self.apply = jax.jit(model.apply)
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,3 +157,89 @@ def seeded_headnerf(seed=0, **cfg_kw):
 
     params = jax.tree_util.tree_map_with_path(fill, shapes)
     return mod, params, {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}
+
+
+# XLA's backend optimizations off: for a reference run once, compiling
+# faster matters more than running fast (per-call option, no global state)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+# the Standardized Space stage 1 at the size of tests/test_vq_roundtrip.py
+VQ_TINY = dict(hidden_size=32, embed_dim=8, n_embed=64, n_embed_au=8, num_hidden_layers=1,
+               num_attention_heads=2, intermediate_size=64, img_size=16, au_dim=256, n_au=5)
+
+
+def vq_batch(seed=0, B=2, crop=48, cfg_kw=VQ_TINY):
+    """A stage-1 batch of numpy arrays from `seed`: smooth gt frames, gen =
+    gt plus noise, a partial mask, random crops and labels."""
+    rng = np.random.default_rng(seed)
+    S = cfg_kw["img_size"]
+    yy, xx = np.mgrid[0:S, 0:S] / S
+    gt = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (a * xx + b * yy + c))
+                   for a, b, c in rng.uniform(0.3, 1.5, (B, 3))])[..., None].repeat(3, -1)
+    gen = np.clip(gt + rng.uniform(-0.3, 0.3, gt.shape), 0, 1)
+    return {"gen_img": gen.astype(np.float32), "gt_img": gt.astype(np.float32),
+            "mask": (rng.uniform(0, 1, (B, S, S, 1)) > 0.2).astype(np.float32),
+            "crops": rng.uniform(0, 1, (B, cfg_kw["n_au"], crop, crop, 3)).astype(np.float32),
+            "au_labels": (rng.uniform(0, 1, (B, cfg_kw["n_au"])) > 0.5).astype(np.float32)}
+
+
+def vq_step(lr=1e-4, au_loss_weight=1.0):
+    """(init, jitted train_step, jitted eval_step) of the JAX
+    `build_vq_step` at VQ_TINY, one per value (however it is passed)."""
+    return _vq_step(float(lr), float(au_loss_weight))
+
+
+@functools.lru_cache(maxsize=None)
+def _vq_step(lr, au_loss_weight):
+    from nerf3dtalker_tpu.config import VQConfig
+    from nerf3dtalker_tpu.train.vq_trainer import build_vq_step
+
+    return build_vq_step(VQConfig(**VQ_TINY), lr=lr, au_loss_weight=au_loss_weight)
+
+
+def vq_state(lr=1e-4, seed=0, crop=48):
+    """The JAX step's VQTrainState at VQ_TINY: `vq_init`'s weights and a
+    fresh optax.adamw(lr, 2e-3) state (zeros in the shapes of its init: no
+    compile)."""
+    import optax
+
+    from nerf3dtalker_tpu.train.vq_trainer import VQTrainState
+
+    params = vq_init(seed, crop)
+    opt = jax.eval_shape(optax.adamw(lr, weight_decay=2e-3).init, params)
+    opt = jax.tree_util.tree_map(lambda x: np.zeros(x.shape, x.dtype), opt)
+    return VQTrainState(*params, opt, np.zeros((), np.int32))
+
+
+def vq_init(seed=0, crop=48):
+    """(vq variables, stacked AU variables) in the shapes of the JAX step's
+    init at VQ_TINY (`jax.eval_shape`: no init compiles), numpy values drawn
+    from `seed` as the flax init draws them: kernels N(0, 1/fan_in),
+    codebooks uniform in +-1/n_embed; but biases N(0, 0.05^2) and LayerNorm
+    scales 1 + N(0, 0.1^2), so that every bias and scale path is checked,
+    and each of the n_au classifiers drawn apart. One per value, however
+    the arguments are passed."""
+    return _vq_init(seed, crop)
+
+
+@functools.lru_cache(maxsize=None)
+def _vq_init(seed, crop):
+    state = jax.eval_shape(vq_step()[0], jax.random.key(seed), vq_batch(crop=crop))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf, stacked):
+        name = str(path[-1].key)
+        shape = leaf.shape[1:] if stacked else leaf.shape
+        noise = rng.standard_normal(leaf.shape)
+        if name == "kernel":
+            value = noise / np.sqrt(np.prod(shape[:-1]))
+        elif name == "embedding":
+            value = rng.uniform(-1.0 / shape[0], 1.0 / shape[0], leaf.shape)
+        elif name == "scale":
+            value = 1.0 + 0.1 * noise
+        else:
+            value = 0.05 * noise
+        return value.astype(np.float32)
+
+    return (jax.tree_util.tree_map_with_path(lambda p, x: fill(p, x, False), state.vq_params),
+            jax.tree_util.tree_map_with_path(lambda p, x: fill(p, x, True), state.au_params))

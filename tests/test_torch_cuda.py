@@ -773,3 +773,64 @@ def test_fit_gradients_through_the_kernels_match_the_plain_path(cuda):
         assert torch.isfinite(a).all() and b.norm() > 0, name
         limit = FIT_CAM_GRAD_REL_L2 if name.startswith("delta") else FIT_GRAD_REL_L2
         assert _rel_l2(a, b) <= limit, f"{name}: rel L2 {_rel_l2(a, b):.3e}"
+
+
+# the Standardized Space stage 1: one step's loss and gradients on the card
+# against the same weights and batch on the CPU, both f32, cuDNN's TF32 off
+# (chip_smoke.py's VQ_* limits give the reasons): the loss within 1e-3
+# relative; at least 99 % of the image-code indices equal (an argmin near a
+# tie may flip); every leaf's gradient within 1e-2 relative L2, the image
+# codebook without the rows that flipped indices touch, and the bias of a
+# conv that feeds an instance norm (`vq_trainer.norm_fed_convs`: its
+# gradient is a sum that cancels) relative to the mass of the terms it sums
+# (`bias_term_mass` on the CPU)
+VQ_LOSS_RTOL = 1e-3
+VQ_INDEX_AGREE = 0.99
+VQ_GRAD_REL_L2 = 1e-2
+
+
+@pytest.mark.cuda
+def test_vq_step_on_the_card_matches_the_cpu(cuda):
+    from nerf3dtalker_tpu_torch.config import VQConfig
+    from nerf3dtalker_tpu_torch.train.vq_trainer import (bias_term_mass, init_modules,
+                                                          norm_fed_convs, to_batch, vq_loss)
+
+    cfg = VQConfig(img_size=64, hidden_size=128, embed_dim=16, n_embed=1024, n_embed_au=64,
+                   num_hidden_layers=2, num_attention_heads=4, intermediate_size=256)
+    rng = np.random.default_rng(0)
+    S, B = cfg.img_size, 2
+    gt = rng.uniform(0, 1, (B, S, S, 3)).astype(np.float32)
+    data = {"gen_img": np.clip(gt + rng.normal(0, 0.1, gt.shape), 0, 1).astype(np.float32),
+            "gt_img": gt, "mask": (rng.uniform(0, 1, (B, S, S, 1)) > 0.3).astype(np.float32),
+            "crops": rng.uniform(0, 1, (B, 5, 112, 112, 3)).astype(np.float32),
+            "au_labels": (rng.uniform(0, 1, (B, 5)) > 0.5).astype(np.float32)}
+    states = {dev.type: init_modules(cfg, 112, dev, torch.Generator().manual_seed(0))
+              for dev in (cuda, torch.device("cpu"))}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = {}
+        for dev, (vq, au) in states.items():
+            with bias_term_mass(norm_fed_convs(vq, au)) as mass:
+                total, _, out = vq_loss(vq, au, to_batch(data, dev))
+                total.backward()
+            grads = {f"vq.{k}": p.grad.cpu() for k, p in vq.named_parameters()}
+            grads.update({f"au.{k}": p.grad.cpu() for k, p in au.named_parameters()})
+            res[dev] = float(total.detach()), out.indices.cpu(), grads, mass
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (lg, ig, gg, _), (lc, ic, gc, mass) = res["cuda"], res["cpu"]
+    assert abs(lg - lc) <= VQ_LOSS_RTOL * abs(lc)
+    same = ig == ic
+    assert same.float().mean() >= VQ_INDEX_AGREE
+    flipped = torch.unique(torch.cat([ig[~same], ic[~same]]))
+    for k, ref in gc.items():
+        got, scale = gg[k], ref.norm()
+        if k == "vq.quantize.embedding" and len(flipped):
+            keep = torch.ones(len(ref), dtype=torch.bool)
+            keep[flipped] = False
+            got, ref, scale = got[keep], ref[keep], ref[keep].norm()
+        if k in mass:
+            scale = mass[k].norm()
+        err = float((got - ref).norm() / scale.clamp_min(1e-30))
+        assert err <= VQ_GRAD_REL_L2, f"{k}: {err:.3e} of its scale"

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _jax_reference import seeded_headnerf
+from _jax_reference import JittedApply, seeded_headnerf
 
 from nerf3dtalker_tpu.config import NeRFConfig as JNeRFConfig
 from nerf3dtalker_tpu.models import HeadNeRF as JHeadNeRF
@@ -300,7 +300,7 @@ def test_fit_single_image_matches_jax():
         fitting.init_fit_vars())
     for name, ours, theirs in zip(fitting.FitVars._fields, g0, g_ref):
         assert np.abs(theirs).min() >= 100 * np.abs(ours.numpy() - theirs).max(), name
-    jmodel = JHeadNeRF(JNeRFConfig(**TINY))
+    jmodel = JittedApply(JHeadNeRF(JNeRFConfig(**TINY)))
     ref_fit, ref_losses = jfit.fit_single_image(
         jmodel, params, jnp.asarray(gt), jnp.asarray(mask),
         {k: jnp.asarray(v) for k, v in codes.items()},
@@ -415,7 +415,7 @@ def test_cli_fit_and_render_match_jax(tmp_path):
     zero = {k: jnp.zeros((1, n)) for k, n in (("iden", 100), ("expr", 79), ("text", 100),
                                               ("illu", 27))}
     ref_fit, ref_losses = jfit.fit_single_image(
-        jmodel, params, jnp.asarray(gt), jnp.ones((1, S, S, 1)), zero,
+        JittedApply(jmodel), params, jnp.asarray(gt), jnp.ones((1, S, S, 1)), zero,
         {k: jnp.asarray(v) for k, v in cam.items()}, jnp.zeros((1, 64)), iters=3)
     with np.load(out) as z:
         fitted = {k: z[k] for k in z.files}

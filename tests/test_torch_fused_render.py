@@ -228,15 +228,68 @@ def test_plain_bwd_matches_pallas_interpret_f32(setup, input_grads):
     _assert_grads(out, ref, 1e-5)
 
 
-def test_plain_bwd_matches_pallas_interpret_bf16(setup):
+@pytest.fixture(scope="module")
+def pallas_bwd_bf16(setup):
+    """The Pallas backward at bf16 in interpret mode, with input grads."""
+    inputs, jp, _ = setup
+    return jfr.fused_render_bwd(*(jnp.asarray(v) for v in inputs), jp,
+                                *(jnp.asarray(c) for c in _cotangents()), tile_rays=16,
+                                compute_dtype=jnp.bfloat16, interpret=True, input_grads=True)
+
+
+def test_plain_bwd_matches_pallas_interpret_bf16(setup, pallas_bwd_bf16):
     inputs, jp, tp = setup
     cot = _cotangents()
-    ref = jfr.fused_render_bwd(*(jnp.asarray(v) for v in inputs), jp,
-                               *(jnp.asarray(c) for c in cot), tile_rays=16,
-                               compute_dtype=jnp.bfloat16, interpret=True, input_grads=True)
     out = fr.reference_render_bwd(*_torch(inputs), tp, *_torch(cot), torch.bfloat16,
                                   input_grads=True)
-    _assert_grads(out, ref, 2e-2)
+    _assert_grads(out, pallas_bwd_bf16, 2e-2)
+
+
+# K2's plain version at bf16 against the Pallas backward at bf16, and each
+# against the f64 gradient (autograd through the plain forward in f64, the
+# weights unrounded), by relative L2 on d_pe and on every weight gradient.
+# Both round weights and activations to bf16 at the same places and sum in
+# f32, so only the f32 summation order separates them (measured up to
+# 1.2e-7 here; a flipped bf16 rounding would show as ~1e-3). Against f64
+# each is off by the bf16 rounding itself, the same for both (measured
+# 5.8e-3 on bd to 2.0e-1 on d_pe and w5p, equal to 3 digits): the port's
+# plain version must be no further off than the Pallas backward, beyond
+# BF16_VS_F64_SLACK of the latter
+BF16_PLAIN_VS_PALLAS_REL_L2 = 1e-5
+BF16_VS_F64_SLACK = 1.01
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def bf16_backward_errors(setup, pallas, monkeypatch):
+    """{name: (plain vs Pallas, plain vs f64, Pallas vs f64)} relative L2,
+    names d_pe and the packed weight gradients. The f64 forward takes its
+    products in f64 too (the plain versions' `_mm` multiplies in f32)."""
+    inputs, _, tp = setup
+    cot = _torch(_cotangents())
+    port = fr.reference_render_bwd(*_torch(inputs), tp, *cot, torch.bfloat16, input_grads=True)
+    ins = [t.double().requires_grad_() for t in _torch(inputs)]
+    leaves = {k: v.double().requires_grad_() for k, v in tp.items()}
+    monkeypatch.setattr(fr, "_mm", lambda a, b: a.double() @ b.double())
+    outs = fr.reference_render(*ins, leaves, torch.float64)
+    grads = torch.autograd.grad(outs, [ins[0], *leaves.values()], [c.double() for c in cot])
+    f64 = {"d_pe": grads[0], **dict(zip(leaves, grads[1:]))}
+    got = {"d_pe": port[0], **port[3]}
+    ref = {"d_pe": pallas[0], **{k: np.asarray(v)[:, :1] if k == "wd" else v
+                                 for k, v in pallas[3].items()}}
+    return {k: (_rel_l2(got[k], ref[k]), _rel_l2(got[k], f64[k]), _rel_l2(ref[k], f64[k]))
+            for k in got}
+
+
+def test_plain_bwd_bf16_is_no_further_from_f64_than_pallas(setup, pallas_bwd_bf16,
+                                                          monkeypatch):
+    errs = bf16_backward_errors(setup, pallas_bwd_bf16, monkeypatch)
+    for name, (vs_pallas, plain_f64, pallas_f64) in errs.items():
+        assert vs_pallas <= BF16_PLAIN_VS_PALLAS_REL_L2, (name, vs_pallas)
+        assert plain_f64 <= BF16_VS_F64_SLACK * pallas_f64, (name, plain_f64, pallas_f64)
 
 
 def test_plain_bwd_matches_autograd(setup):

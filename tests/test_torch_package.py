@@ -39,6 +39,18 @@ def test_import_rule_covers_the_mesh_and_the_probe():
             "nerf3dtalker_tpu_torch/ops/kernels/probe_xtg.py"} <= names
 
 
+def test_import_rule_covers_the_standardized_space_and_the_converters():
+    """The rule above reaches stage 1's modules, its trainer and evaluation,
+    the r05 VQ script and the reference-checkpoint converters."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    port = "nerf3dtalker_tpu_torch/"
+    assert {port + f for f in ("models/vq/__init__.py", "models/vq/quantizer.py",
+                               "models/vq/transformer.py", "models/vq/stage1.py",
+                               "models/vq/au_classifier.py", "train/vq_trainer.py",
+                               "train/vq_eval.py", "utils/convert.py",
+                               "scripts/vq_run.py")} <= names
+
+
 def test_kernel_source_is_in_the_package():
     from nerf3dtalker_tpu_torch.ops.kernels import build
 
@@ -101,7 +113,19 @@ def test_entry_points_without_cuda_raise(no_cuda, tmp_path):
         cli.main(["fit", "--iters", "1", "--out", str(tmp_path / "fitted.npz")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["render", "--views", "1", "--out", str(tmp_path / "views.npy")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train-vq", "--epochs", "1", "--ckpt-dir", str(tmp_path / "vq_ckpt")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["eval-vq", "--out", str(tmp_path / "gen+")])
+    from nerf3dtalker_tpu_torch.config import VQConfig
+    from nerf3dtalker_tpu_torch.models.vq import AUClassifier, VQAutoEncoder
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VQAutoEncoder(VQConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AUClassifier()
     assert not list(tmp_path.glob("fitted.npz")) and not list(tmp_path.glob("views.npy"))
+    assert not list(tmp_path.glob("vq_ckpt")) and not list(tmp_path.glob("gen+"))
 
 
 def test_cpu_tensor_runs_plain_version_cuda_request_raises(no_cuda):

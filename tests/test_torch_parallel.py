@@ -236,8 +236,11 @@ def test_k4_plain_version_matches_jax_fused_render_spmd(spawned):
         return jfr.fused_render_spmd(*(jnp.asarray(v) for v in inputs), w, jmesh,
                                      ("data", "rays"), 256, jnp.float32, True, False)
 
-    jouts, vjp = jax.vjp(f, jpacked)
-    (jdw,) = vjp(tuple(jnp.asarray(c) for c in cot))
+    def outs_and_vjp(w, c):   # one compiled program: eagerly, interpret mode runs op by op
+        outs, vjp = jax.vjp(f, w)
+        return outs, vjp(c)[0]
+
+    jouts, jdw = jax.jit(outs_and_vjp)(jpacked, tuple(jnp.asarray(c) for c in cot))
     by_coords = {res[(2, 2)]["coords"]: res[(2, 2)]["k4"] for res in spawned["2x2"]()}
     half_b, half_r = B // 2, R // 2
     for i, name in enumerate(("feat", "bg_alpha", "depth")):

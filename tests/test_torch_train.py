@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 from _jax_reference import audio2style as jax_audio2style
+from _jax_reference import by_content
 from _jax_reference import headnerf as jax_headnerf
 from _jax_reference import vgg16 as jax_vgg16
 
@@ -139,11 +140,14 @@ def step_setup():
     return jparams, batch
 
 
+@by_content
 def _jax_step(jparams, batch, tc, steps_per_epoch):
     """Losses, gradients and params after one update, JAX. The gradient is
     taken in two compiled pieces joined by the chain rule (the NeRF part,
     with respect to its params and audio_style, then the Audio2Style VJP of
-    d audio_style): one program for both compiles four times longer."""
+    d audio_style): one program for both compiles four times longer.
+    Computed once a process for the same inputs (tests/test_torch_parallel.py
+    asks for this file's)."""
     jmodel = JHeadNeRF(JNeRFConfig(**TINY))
     jaudio = jax_audio2style()[0]
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
