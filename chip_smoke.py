@@ -68,6 +68,23 @@ Phases (any failure exits non-zero):
                 then `cli train-vq` (1 epoch, a checkpoint) and `cli eval-vq
                 --ckpt` (one PNG a frame, metrics equal to
                 `reconstruct_split` in process on that checkpoint);
+  4e. stage2 — the Standardized Space stage 2 over 4d's `cli train-vq`
+                checkpoint, the subject's renders as motion frames, on a
+                seeded wav: wav2vec2-base (seeded) on the card against the
+                CPU; one CodeTalker step (4 frames) on the card against the
+                CPU (loss, code indices, every gradient leaf); 50 steps on an
+                8-frame clip (the loss falls; ms/step by CUDA events, 5 steps
+                profiled: device time, idle share); `predict` of 16 frames
+                (ms a frame); `cli infer-stage2` with the encoder as a local
+                HF directory, the VQ and the stage-2 checkpoints, equal to the
+                in-process predict; LVE / FDD;
+  4f. coeff  — SadTalker's audio -> expression path: a seeded netG written as
+                a SadTalker safetensors file; `cli infer-coeff` from a wav and
+                from --text, equal to the in-process Audio2Coeff, and the card
+                against the CPU; one audio2exp and one disexp step on the card
+                against the CPU; the expressions driving 4c's fitted subject
+                through `animate_sequence(expr_seq=...)` (K1 launches
+                counted);
   5. fused upsampler — serve 8 Reso64 frames through `animate_sequence`
                 with `HeadNeRF(use_fused=True, use_fused_upsampler=True)`
                 (K1 and K5-fwd launches counted, frames held against the
@@ -1125,6 +1142,7 @@ def phase_fit(seed: int, workdir: str):
             "delta_euler": fit_vals["delta_euler"][0].tolist(),
             "delta_tvec": fit_vals["delta_tvec"][0].tolist(), "breakdown": parts,
             "render_wall_s": render_wall, "phase_s": phase_s, "ckpt_dir": ckpt_dir,
+            "fitted": fitted,
             "k1_fit": k1, "k2_fit": k2, "k1_render": k1_render, "k1_animate": k1_animate}
 
 
@@ -1241,7 +1259,17 @@ VQ_PROFILE_STEPS = 10
 # against f64 at the card test's config, `tests/_vq_bias_conditioning.py`:
 # the classifiers' <= 2.7e-8 of the mass, the squasher's 8.9e-5 - 3.1e-3,
 # the expander's 1.7e-4 - 7.3e-3; the expander's 9.5e-2 of its own size on
-# the first card run)
+# the first card run). The encoder stem's two biases (`VQ_STEM_BIASES`) are
+# sums that cancel as well: a shift of the stem's output reaches the
+# squasher's norm through linear maps and ReLU knees only, so f32 leaves
+# them an error that is large against their own size on either side
+# (stem1's card-vs-CPU f32 gradient was 8.0e-3 of its size on one card run
+# and 1.9e-2 on the next), while their size is too small a share of their
+# terms' mass for a limit on that mass to catch a wrong gradient. They are
+# held to VQ_GRAD_REL_L2 of their own size in one more step, in f64 on both
+# sides on the same weights and batch; the log prints their size over the
+# mass and the f32 errors against the CPU's f64 gradient, so that the
+# margin shows on every run
 VQ_LOSS_RTOL = 1e-3
 VQ_INDEX_AGREE = 0.99
 VQ_RECON_RTOL = 1e-2
@@ -1250,22 +1278,71 @@ VQ_GRAD_REL_L2 = 1e-2
 # checkpoint's weights: the same calls on the same card, so equal but for a
 # sum order the card might change between two runs of one kernel
 VQ_CLI_RTOL = 1e-6
+VQ_STEM_BIASES = ("vq.encoder.stem0.bias", "vq.encoder.stem1.bias")
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """cuDNN's and cuBLAS's TF32 off for a card-vs-CPU comparison."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield saved
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def vq_step_on(vq, au, batch):
     """(total loss, out, {name: gradient}, {name: term mass}) of one stage-1
     step's loss on the modules' device; the mass is `bias_term_mass`'s for
-    the biases of `norm_fed_convs`."""
+    the biases of `norm_fed_convs` and `VQ_STEM_BIASES`."""
     from nerf3dtalker_tpu_torch.train.vq_trainer import bias_term_mass, norm_fed_convs, vq_loss
 
     for m in (vq, au):
         m.zero_grad(set_to_none=True)
-    with bias_term_mass(norm_fed_convs(vq, au)) as mass:
+    convs = {**norm_fed_convs(vq, au), VQ_STEM_BIASES[0]: vq.encoder.stem0,
+             VQ_STEM_BIASES[1]: vq.encoder.stem1}
+    with bias_term_mass(convs) as mass:
         total, _, out = vq_loss(vq, au, batch)
         total.backward()
     grads = {f"vq.{k}": p.grad for k, p in vq.named_parameters()}
     grads.update({f"au.{k}": p.grad for k, p in au.named_parameters()})
     return float(total.detach()), out, grads, mass
+
+
+def vq_stem_f64(card, cpu, batch, grads_g, grads_c):
+    """The gradients of `VQ_STEM_BIASES` from one stage-1 step in f64 on
+    the card's modules (`card`: vq, au) and on their CPU copies (`cpu`),
+    copied to f64, on `batch`: ({bias: {f64_card_vs_cpu: relative L2,
+    size_over_mass: the CPU's f64 gradient over its terms' mass,
+    f32_card_to_own / f32_cpu_to_own / f32_card_to_mass: the f32 step's
+    gradients (`grads_g`, `grads_c`) against the CPU's f64 one}}, the
+    share of image-code indices the two f64 steps agree on, seconds)."""
+    import copy
+
+    t0 = time.perf_counter()
+    batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    got = {}
+    for side, mods in (("card", card), ("cpu", cpu)):
+        vq64, au64 = (copy.deepcopy(m).double() for m in mods)
+        dev = next(vq64.parameters()).device
+        _, out, grads, mass = vq_step_on(vq64, au64, {k: v.to(dev) for k, v in batch64.items()})
+        got[side] = ({k: grads[k].cpu() for k in VQ_STEM_BIASES}, out.indices.cpu(),
+                     {k: mass[k].cpu() for k in VQ_STEM_BIASES})
+        del vq64, au64, out, grads, mass
+    (g, idx_g, _), (c, idx_c, m_c) = got["card"], got["cpu"]
+    stem = {}
+    for k in VQ_STEM_BIASES:
+        own, mass = c[k].norm(), m_c[k].norm()
+        f32_card = (grads_g[k].cpu().double() - c[k]).norm()
+        stem[k] = {"f64_card_vs_cpu": float((g[k] - c[k]).norm() / own),
+                   "size_over_mass": float(own / mass),
+                   "f32_card_to_own": float(f32_card / own),
+                   "f32_cpu_to_own": float((grads_c[k].double() - c[k]).norm() / own),
+                   "f32_card_to_mass": float(f32_card / mass)}
+    return stem, float((idx_g == idx_c).float().mean()), time.perf_counter() - t0
 
 
 def phase_vq(seed: int, workdir: str, ckpt_dir: str):
@@ -1327,12 +1404,8 @@ def phase_vq(seed: int, workdir: str, ckpt_dir: str):
     batch = to_batch(data, dev, slice(0, VQ_BATCH))
     state = init(torch.Generator().manual_seed(seed), batch)
     ref_vq, ref_au = (copy.deepcopy(m).cpu() for m in (state.vq, state.au))
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with tf32_off() as tf32:
         loss_g, out_g, grads_g, _ = vq_step_on(state.vq, state.au, batch)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     t0 = time.perf_counter()
     loss_c, out_c, grads_c, mass_c = vq_step_on(ref_vq, ref_au,
                                                 {k: v.cpu() for k, v in batch.items()})
@@ -1346,6 +1419,8 @@ def phase_vq(seed: int, workdir: str, ckpt_dir: str):
     flipped_rows = torch.unique(torch.cat([idx_g[~same], idx_c[~same]]))
     errs = {}
     for k, gc in grads_c.items():
+        if k in VQ_STEM_BIASES:   # held in f64 below
+            continue
         gg, scale = grads_g[k].cpu(), gc.norm()
         if k == "vq.quantize.embedding" and len(flipped_rows):
             keep = torch.ones(len(gc), dtype=torch.bool)
@@ -1356,8 +1431,8 @@ def phase_vq(seed: int, workdir: str, ckpt_dir: str):
         errs[k] = float((gg - gc).norm() / scale.clamp_min(1e-30))
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
     worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
-    log(f"vq {at()} step, card vs CPU (f32; cuDNN TF32 off for this comparison, {tf32} by default; "
-        f"matmul TF32 {torch.backends.cuda.matmul.allow_tf32}): loss {loss_g:.6f} vs {loss_c:.6f}, "
+    log(f"vq {at()} step, card vs CPU (f32; cuDNN and matmul TF32 off for this comparison, "
+        f"{tf32[0]} and {tf32[1]} by default): loss {loss_g:.6f} vs {loss_c:.6f}, "
         f"rel {loss_rel:.2e} (tolerance {VQ_LOSS_RTOL:.0e}); image-code indices equal "
         f"{agree:.5f} (limit {VQ_INDEX_AGREE}), {int((~same).sum())} flipped of {same.numel()}, "
         f"codebook rows left out {len(flipped_rows)}; frames with every index equal "
@@ -1369,6 +1444,17 @@ def phase_vq(seed: int, workdir: str, ckpt_dir: str):
             and (not whole.any() or recon_err <= VQ_RECON_RTOL)
             and max(errs.values()) <= VQ_GRAD_REL_L2):
         raise AssertionError("vq: the step on the card disagrees with the CPU")
+
+    # the stem's biases: the same step in f64 on both sides
+    stem, agree64, stem64_s = vq_stem_f64((state.vq, state.au), (ref_vq, ref_au), batch,
+                                          grads_g, grads_c)
+    rel64 = ", ".join(f"{k} {v['f64_card_vs_cpu']:.2e}" for k, v in stem.items())
+    log(f"vq {at()} the encoder stem's biases, the step in f64 on the card against f64 on the "
+        f"CPU: relative L2 {rel64} (tolerance {VQ_GRAD_REL_L2:.0e}); image-code indices equal "
+        f"{agree64:.5f}; against the CPU's f64 gradient: {json.dumps(stem)}; both f64 steps "
+        f"{stem64_s:.1f} s")
+    if not max(v["f64_card_vs_cpu"] for v in stem.values()) <= VQ_GRAD_REL_L2:
+        raise AssertionError("vq: the stem biases' f64 gradient on the card disagrees with the CPU")
     del ref_vq, ref_au, grads_c, grads_g, out_g, out_c
 
     # 3. 200 steps on the card: every metric finite, rec_loss falling
@@ -1451,12 +1537,458 @@ def phase_vq(seed: int, workdir: str, ckpt_dir: str):
     return {"k1_renders": k1_renders, "step_parity": {
                 "loss_rel": loss_rel, "index_agreement": agree, "flipped": int((~same).sum()),
                 "recon_rel": recon_err, "grad_rel_l2_max": max(errs.values()),
-                "worst": dict(worst), "cudnn_tf32_default": tf32},
+                "worst": dict(worst), "cudnn_tf32_default": tf32[0], "stem_f64": stem},
             "steps": VQ_STEPS, "ms_per_step": ms_step, "rec_loss": [hist["rec_loss"][0],
                                                                     hist["rec_loss"][-1]],
             "profile": profile, "reconstruct_ms_per_frame": ms_frame,
             "reconstruct": rec_metrics, "cli": {"train_vq": trec, "eval_vq": {
-                k: erec[k] for k in own_metrics}}, "phase_s": phase_s}
+                k: erec[k] for k in own_metrics}}, "phase_s": phase_s,
+            "ckpt": ck, "train_frames": data["gen_img"]}
+
+
+# ---- the audio-to-motion front ends: Standardized Space stage 2 (wav2vec2
+# -> CodeTalker -> the frozen stage 1) and SadTalker's audio -> expression
+
+# stage 2 over the `vq` phase's `cli train-vq` checkpoint (VQConfig
+# defaults: 2,048 codes of 64 a 256^2 frame, V3 = 196,608), CodeTalker at
+# its class defaults (feature 64, 4 heads, 1 layer, period 25, 8 subjects),
+# wav2vec2-base seeded; the fit subject's renders are the motion frames
+S2_PARITY_FRAMES = 4      # the card-vs-CPU step
+S2_CLIP_FRAMES = 8        # the training clip
+S2_STEPS = 50
+S2_TIMED_FROM = 5
+S2_PROFILE_STEPS = 5
+S2_PREDICT_FRAMES = 16
+# wav2vec2-base on the card against the CPU, f32 with TF32 off: the last
+# layer's relative L2 (12 post-LN layers of f32 sums in other orders)
+W2V_REL_L2 = 1e-3
+# one stage-2 step on the card against the CPU (f32, TF32 off; the code
+# head drawn nonzero for this check, since its zero init leaves every other
+# leaf's gradient 0): the loss relative; at least S2_INDEX_AGREE of the
+# predicted codes' indices equal (an argmin near a tie can flip); every
+# CodeTalker leaf's gradient by relative L2. A leaf whose gradient is 0 in
+# exact arithmetic (a key projection's bias: softmax is invariant to a
+# shift of a row; the cross-attention's q and k: the vocaset mask leaves
+# one key a row) is held under S2_ZERO_GRAD of the largest leaf's gradient
+# norm on both sides instead
+S2_LOSS_RTOL = 1e-3
+S2_INDEX_AGREE = 0.99
+S2_GRAD_REL_L2 = 1e-2
+S2_ZERO_GRAD = 1e-4
+S2_ZERO_GRAD_LEAVES = ("dec_0.self_k.bias", "dec_0.cross_q.weight", "dec_0.cross_q.bias",
+                       "dec_0.cross_k.weight", "dec_0.cross_k.bias")
+# `cli infer-stage2` against the in-process predict on the same card
+S2_CLI_ATOL = 1e-6
+# the coeff phase: SadTalker's netG (a single width) seeded, as a
+# SadTalker-layout safetensors file; the CLI against the in-process
+# Audio2Coeff (same card, same calls); the card against the CPU (TF32 off)
+# within COEFF_RTOL of max|ref|; one audio2exp and one disexp step on the
+# card against the CPU: the loss relative, each leaf's gradient by relative
+# L2
+COEFF_CLI_ATOL = 1e-6
+COEFF_RTOL = 1e-4
+COEFF_LOSS_RTOL = 1e-3
+COEFF_GRAD_REL_L2 = 1e-2
+COEFF_TEXT = "the quick brown fox jumps over the lazy dog"
+
+
+def write_safetensors(path: str, tensors) -> None:
+    """Write numpy arrays ({name: array}; floats, signed ints) as a
+    safetensors file in name order, for the fixtures of `stage2` and
+    `coeff` (the card's machine has no `safetensors` package):
+    an 8-byte little-endian header length, the JSON header, then the raw
+    little-endian bytes."""
+    import struct
+
+    import numpy as np
+
+    names = {"f8": "F64", "f4": "F32", "f2": "F16", "i8": "I64", "i4": "I32"}
+    header, chunks, offset = {}, [], 0
+    for name in sorted(tensors):
+        a = np.asarray(tensors[name])
+        raw = np.ascontiguousarray(a, dtype=a.dtype.newbyteorder("<")).tobytes()
+        header[name] = {"dtype": names[a.dtype.str[1:]], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        chunks.append(raw)
+        offset += len(raw)
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)      # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for raw in chunks:
+            f.write(raw)
+
+
+def write_hf_wav2vec2(enc, directory: str) -> None:
+    """`enc` as a local HF `Wav2Vec2Model` directory (config.json +
+    model.safetensors), the position conv weight-normed over dim 2 in the
+    newer spelling: g = |w| over dims 0 and 1 at each tap, v = w."""
+    import numpy as np
+
+    from nerf3dtalker_tpu_torch.models.vq.wav2vec import HF_POS_CONV, hf_names
+
+    c = enc.cfg
+    sd = {k: v.detach().cpu().numpy() for k, v in enc.state_dict().items()}
+    out = {hf: sd[port] for port, hf in hf_names(c).items()}
+    w = sd["pos_conv.weight"]
+    out[f"{HF_POS_CONV}.parametrizations.weight.original0"] = np.sqrt(
+        (w.astype(np.float64) ** 2).sum(axis=(0, 1), keepdims=True)).astype(np.float32)
+    out[f"{HF_POS_CONV}.parametrizations.weight.original1"] = w
+    os.makedirs(directory, exist_ok=True)
+    write_safetensors(os.path.join(directory, "model.safetensors"), out)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump({"architectures": ["Wav2Vec2Model"], "conv_dim": list(c.conv_dim),
+                   "conv_kernel": list(c.conv_kernel), "conv_stride": list(c.conv_stride),
+                   "conv_bias": c.conv_bias, "hidden_size": c.hidden_size,
+                   "num_hidden_layers": c.num_layers, "num_attention_heads": c.num_heads,
+                   "intermediate_size": c.intermediate_size,
+                   "num_conv_pos_embeddings": c.num_conv_pos_embeddings,
+                   "num_conv_pos_embedding_groups": c.num_conv_pos_embedding_groups,
+                   "feat_extract_norm": "group", "do_stable_layer_norm": False}, f)
+
+
+def grad_rel_l2(grads_g, grads_c, zero_leaves=()):
+    """{leaf: relative L2 of the card's gradient against the CPU's}; a leaf
+    of `zero_leaves` (0 in exact arithmetic) by the larger of its two norms
+    over the largest leaf norm of the CPU's."""
+    scale = max(float(g.norm()) for g in grads_c.values())
+    errs = {}
+    for k, gc in grads_c.items():
+        gg = grads_g[k].cpu()
+        errs[k] = (max(float(gg.norm()), float(gc.norm())) / scale if k in zero_leaves
+                   else float((gg - gc).norm() / gc.norm().clamp_min(1e-30)))
+    return errs
+
+
+def phase_stage2(seed: int, workdir: str, vq_ckpt: str, frames):
+    """The Standardized Space stage 2 on the `vq` phase's checkpoint:
+    wav2vec2-base card vs CPU, one stage-2 step card vs CPU, 50 steps on the
+    card (timed, profiled), `predict` of 16 frames (ms a frame), `cli
+    infer-stage2` against the in-process predict, LVE / FDD. `frames` are
+    the fit subject's train renders [N, 256, 256, 3]."""
+    import copy
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.config import VQConfig
+    from nerf3dtalker_tpu_torch.data.mel import read_wav_mono
+    from nerf3dtalker_tpu_torch.models.vq import wav2vec as w2v
+    from nerf3dtalker_tpu_torch.models.vq.stage1 import VQAutoEncoder
+    from nerf3dtalker_tpu_torch.models.vq.stage2 import CodeTalker
+    from nerf3dtalker_tpu_torch.train import stage2_trainer as s2t
+    from nerf3dtalker_tpu_torch.train.vq_eval import eval_stage2, frame_vq_apply
+    from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint, save_checkpoint
+
+    t_phase = time.perf_counter()
+
+    def at():   # seconds into the phase
+        return f"[{time.perf_counter() - t_phase:.1f} s]"
+
+    dev = torch.device(DEVICE)
+    T = S2_PREDICT_FRAMES
+    wav_path = os.path.join(workdir, "stage2.wav")
+    write_wav(wav_path, seed + 3, T)
+    pcm, _ = read_wav_mono(wav_path)
+    # normalized on the card, as `cli infer-stage2` normalizes it
+    wav_g = w2v.normalize_wav(torch.as_tensor(pcm[None], dtype=torch.float32, device=dev))
+    wav_c = wav_g.cpu()
+
+    # 1. wav2vec2-base, seeded, on the card against the CPU
+    enc_c = w2v.Wav2Vec2Encoder(device="cpu",
+                                generator=torch.Generator().manual_seed(seed)).eval()
+    enc_g = copy.deepcopy(enc_c).to(dev)
+    with torch.no_grad(), tf32_off():
+        h_c = enc_c(wav_c)
+        h_g = enc_g(wav_g)
+    w2v_rel = float((h_g.cpu() - h_c).norm() / h_c.norm())
+    hf_dir = os.path.join(workdir, "wav2vec2_base_hf")
+    write_hf_wav2vec2(enc_c, hf_dir)
+    del enc_c, enc_g, h_c, h_g
+    enc = w2v.load_hf_wav2vec2(hf_dir, dev)     # what `cli infer-stage2 --hf-wav2vec` loads
+    with torch.no_grad():
+        w2v_ms = cuda_ms(lambda: enc(wav_g), reps=5)
+        states = enc(wav_g)                             # [1, S, 768] at 50 Hz
+        feats = w2v.encode_audio(enc, wav_g, T)         # [1, T, 768]
+    del enc
+    log(f"stage2 {at()}: wav2vec2-base ({len(pcm)} samples -> {states.shape[1]} states) card "
+        f"vs CPU, f32 with TF32 off: relative L2 {w2v_rel:.2e} at the last layer (tolerance "
+        f"{W2V_REL_L2:.0e}); {w2v_ms:.2f} ms a call on the card (CUDA events)")
+    if not w2v_rel <= W2V_REL_L2:
+        raise AssertionError("stage2: wav2vec2 on the card disagrees with the CPU")
+
+    # 2. one stage-2 step on the card against the CPU, the same weights and batch
+    payload = load_checkpoint(vq_ckpt, map_location="cpu")
+    vcfg = VQConfig(**payload["config"])
+    vq_c = VQAutoEncoder(vcfg, device="cpu")
+    vq_c.load_state_dict(payload["vq"])
+    vq_g = copy.deepcopy(vq_c).to(dev)
+    ap_c, ap_g = frame_vq_apply(vq_c), frame_vq_apply(vq_g)
+    L, V3 = ap_g["codes_per_frame"], ap_g["vertice_dim"]
+    s2cfg = dataclasses.replace(vcfg, face_quan_num=L)
+    model_c = CodeTalker(s2cfg, vertice_dim=V3, device="cpu",
+                         generator=torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad():
+        model_c.feat_map.weight.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(seed))
+    model_g = copy.deepcopy(model_c).to(dev)
+    motion = torch.as_tensor(np.ascontiguousarray(frames[:S2_CLIP_FRAMES])).reshape(1, -1, V3)
+    onehot = torch.nn.functional.one_hot(torch.tensor([0]), model_c.dims["n_subjects"]).float()
+    batch_c = {"audio_feats": states.cpu(), "motion": motion[:, :S2_PARITY_FRAMES],
+               "onehot": onehot}
+    with tf32_off():
+        loss_g, _, idx_g = s2t.stage2_step_loss(model_g, ap_g,
+                                                {k: v.to(dev) for k, v in batch_c.items()})
+        loss_g.backward()
+    t0 = time.perf_counter()
+    loss_c, _, idx_c = s2t.stage2_step_loss(model_c, ap_c, batch_c)
+    loss_c.backward()
+    cpu_s = time.perf_counter() - t0
+    same = idx_g.cpu() == idx_c
+    agree = float(same.float().mean())
+    errs = grad_rel_l2({k: p.grad for k, p in model_g.named_parameters()},
+                       {k: p.grad for k, p in model_c.named_parameters()}, S2_ZERO_GRAD_LEAVES)
+    loss_g, loss_c = float(loss_g.detach()), float(loss_c.detach())
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst = dict(sorted(((k, v) for k, v in errs.items() if k not in S2_ZERO_GRAD_LEAVES),
+                        key=lambda kv: -kv[1])[:4])
+    zero = {k: errs[k] for k in S2_ZERO_GRAD_LEAVES}
+    log(f"stage2 {at()}: one step ({S2_PARITY_FRAMES} frames, {L} codes a frame, V3 {V3}) card "
+        f"vs CPU (f32, TF32 off): loss {loss_g:.6f} vs {loss_c:.6f}, rel "
+        f"{loss_rel:.2e} (tolerance {S2_LOSS_RTOL:.0e}); code indices equal {agree:.5f} (limit "
+        f"{S2_INDEX_AGREE}), {int((~same).sum())} flipped of {same.numel()}; gradient rel L2, "
+        f"worst {json.dumps(worst)} (tolerance {S2_GRAD_REL_L2:.0e}, {len(errs)} leaves); "
+        f"the zero-gradient leaves over the largest norm {json.dumps(zero)} (limit "
+        f"{S2_ZERO_GRAD:.0e}); the CPU step {cpu_s:.1f} s")
+    if not (loss_rel <= S2_LOSS_RTOL and agree >= S2_INDEX_AGREE
+            and max(worst.values()) <= S2_GRAD_REL_L2 and max(zero.values()) <= S2_ZERO_GRAD):
+        raise AssertionError("stage2: the step on the card disagrees with the CPU")
+    del vq_c, ap_c, model_c, model_g, loss_g, loss_c
+
+    # 3. 50 steps on the card from CodeTalker's own init (zero code head)
+    init, train_step, predict = s2t.build_stage2_step(s2cfg, ap_g, V3, device=dev)
+    state = init(torch.Generator().manual_seed(seed + 1), None)
+    batch = {"audio_feats": states, "motion": motion.to(dev), "onehot": onehot.to(dev)}
+    history = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(S2_STEPS):
+        if i == S2_TIMED_FROM:
+            ev[0].record()
+        state, m = train_step(state, batch)
+        history.append(m)
+    ev[1].record()
+    ev[1].synchronize()
+    steps_s = time.perf_counter() - t0
+    ms_step = ev[0].elapsed_time(ev[1]) / (S2_STEPS - S2_TIMED_FROM)
+    hist = {k: [float(h[k]) for h in history] for k in history[0]}
+    finite = all(math.isfinite(v) for vals in hist.values() for v in vals)
+    log(f"stage2 {at()}: {S2_STEPS} steps on the {S2_CLIP_FRAMES}-frame clip in {steps_s:.1f} s; "
+        f"{ms_step:.2f} ms a step (CUDA events, steps {S2_TIMED_FROM}-{S2_STEPS}); total_loss "
+        f"{hist['total_loss'][0]:.5f} -> {hist['total_loss'][-1]:.5f} (loss_motion "
+        f"{hist['loss_motion'][0]:.5f} -> {hist['loss_motion'][-1]:.5f}, loss_reg "
+        f"{hist['loss_reg'][0]:.5f} -> {hist['loss_reg'][-1]:.5f})")
+    if not finite or not hist["total_loss"][-1] < hist["total_loss"][0]:
+        raise AssertionError("stage2: a non-finite loss, or the total loss did not fall")
+    profile = profile_steps(lambda: train_step(state, batch), steps=S2_PROFILE_STEPS,
+                            label="stage2_profile", host_ops=False)
+
+    # 4. predict: T frames autoregressively
+    model = state.model.eval()
+    onehot_g = onehot.to(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    pred = predict(model, feats, onehot_g, T)
+    ev[1].record()
+    ev[1].synchronize()
+    ms_frame = ev[0].elapsed_time(ev[1]) / T
+    pred = pred.cpu().numpy()
+    log(f"stage2 {at()}: predict of {T} frames, {ms_frame:.2f} ms a frame (CUDA events; "
+        f"CodeTalker over the {T}-frame buffer, quantize and one frame's decode a step); frames "
+        f"finite {bool(np.isfinite(pred).all())}, range [{pred.min():.3f}, {pred.max():.3f}]")
+    if pred.shape != (1, T, V3) or not np.isfinite(pred).all():
+        raise AssertionError("stage2: predict")
+
+    # 5. cli infer-stage2 on the checkpoints, against the in-process predict
+    s2_ck = os.path.join(workdir, "stage2_ckpt")
+    shutil.rmtree(s2_ck, ignore_errors=True)
+    save_checkpoint(s2_ck, s2t.codetalker_payload(model), state.step)
+    out = os.path.join(workdir, "stage2_frames.npy")
+    t0 = time.perf_counter()
+    rec = cli.main(["infer-stage2", "--wav", wav_path, "--frames", str(T), "--hf-wav2vec", hf_dir,
+                    "--vq-ckpt", vq_ckpt, "--ckpt", s2_ck, "--device", DEVICE, "--out", out])
+    cli_s = time.perf_counter() - t0
+    got = np.load(out)
+    diff = float(np.abs(got - pred).max())
+    gt = np.asarray(frames[:T], np.float32).reshape(T, -1, 3)
+    metrics = eval_stage2(predict, model, feats, onehot_g, T, verts_gt=gt,
+                          template=gt.mean(0))
+    log(f"stage2 {at()}: cli infer-stage2 --hf-wav2vec --vq-ckpt --ckpt: {rec['frames']} frames "
+        f"of {rec['img_size']}^2 in {cli_s:.1f} s, finite {rec['finite']}; against the "
+        f"in-process predict max_abs {diff:.3e} (tolerance {S2_CLI_ATOL:.0e}); LVE "
+        f"{metrics['LVE']:.5f}, FDD {metrics['FDD']:.5f} (the predicted frames as {V3 // 3} "
+        f"'vertices' against the subject's first {T} renders, template their mean)")
+    if got.shape != (1, T, V3) or not rec["finite"] or diff > S2_CLI_ATOL:
+        raise AssertionError("stage2: cli infer-stage2 disagrees with predict")
+    phase_s = time.perf_counter() - t_phase
+    log(f"stage2: phase {phase_s:.1f} s")
+    return {"wav2vec2": {"rel_l2": w2v_rel, "ms": w2v_ms, "samples": len(pcm)},
+            "step_parity": {"loss_rel": loss_rel, "index_agreement": agree,
+                            "flipped": int((~same).sum()), "grad_rel_l2_worst": worst,
+                            "zero_grad_leaves": zero},
+            "steps": S2_STEPS, "ms_per_step": ms_step,
+            "total_loss": [hist["total_loss"][0], hist["total_loss"][-1]],
+            "profile": profile, "predict_ms_per_frame": ms_frame, "cli_s": cli_s,
+            "cli_max_abs": diff, "LVE": metrics["LVE"], "FDD": metrics["FDD"],
+            "phase_s": phase_s}
+
+
+def coeff_step_grads(step, state, module, batch):
+    """(loss, {leaf: gradient}) of one trainer step on `module`'s device;
+    the gradients are those the step's optimizer used (read after it)."""
+    state, m = step(state, batch)
+    grads = {k: p.grad for k, p in module.named_parameters() if p.grad is not None}
+    grads.update({k: b.grad for k, b in module.named_buffers() if b.grad is not None})
+    return float(m["exp_loss"]), grads
+
+
+def phase_coeff(seed: int, workdir: str, ckpt_dir: str, fitted: str):
+    """SadTalker's audio -> expression path: a seeded netG as a SadTalker
+    safetensors file, `cli infer-coeff` from a wav and from text against the
+    in-process Audio2Coeff and the CPU, one audio2exp and one disexp step
+    card vs CPU, and the expressions driving `animate_sequence(expr_seq=...)`
+    of the fit subject (its K1 launches counted)."""
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.data.mel import per_frame_mel_chunks, read_wav_mono
+    from nerf3dtalker_tpu_torch.models.audio import SimpleWrapperV2
+    from nerf3dtalker_tpu_torch.models.audio2coeff import Audio2Coeff
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.train import audio2exp_trainer, disexp_trainer
+    from nerf3dtalker_tpu_torch.train.animate import animate_sequence, styles_from_mels
+    from nerf3dtalker_tpu_torch.utils.camera import base_cam
+    from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint
+
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"[{time.perf_counter() - t_phase:.1f} s]"
+
+    dev = torch.device(DEVICE)
+    # 1. a seeded netG in SadTalker's layout
+    netg = SimpleWrapperV2(device="cpu", generator=torch.Generator().manual_seed(seed))
+    st_path = os.path.join(workdir, "sadtalker_netg.safetensors")
+    write_safetensors(st_path, {f"audio2exp.audio2exp_model.netG.{k}": v.numpy()
+                                for k, v in netg.state_dict().items()})
+
+    # 2. cli infer-coeff from a wav and from text
+    wav = os.path.join(workdir, "coeff.wav")
+    write_wav(wav, seed + 4, FRAMES)
+    runs = {}
+    t0 = time.perf_counter()
+    for source, flags in (("wav", ["--wav", wav]), ("text", ["--text", COEFF_TEXT])):
+        out = os.path.join(workdir, f"coeffs_{source}.npz")
+        rec = cli.main(["infer-coeff", *flags, "--safetensors", st_path, "--seed", str(seed),
+                        "--device", DEVICE, "--out", out])
+        with np.load(out) as z:
+            runs[source] = {k: z[k] for k in z.files}
+        runs[source]["rec"] = rec
+    cli_s = time.perf_counter() - t0
+    a2c_g = Audio2Coeff.from_safetensors(st_path, dev)
+    a2c_c = Audio2Coeff.from_safetensors(st_path, "cpu")
+    cli_diff, cpu_rel = {}, {}
+    for source, r in runs.items():
+        ref_exp, zeros_pose = np.zeros(64, np.float32), np.zeros((len(r["mels"]), 6), np.float32)
+        own = a2c_g.generate(r["mels"], ref_exp, r["ratios"], zeros_pose)
+        cli_diff[source] = float(np.abs(own["exp"] - r["exp"]).max())
+        with tf32_off():
+            g = a2c_g.generate(r["mels"], ref_exp, r["ratios"])["exp"]
+        c = a2c_c.generate(r["mels"], ref_exp, r["ratios"])["exp"]
+        cpu_rel[source] = float(np.abs(g - c).max() / np.abs(c).max())
+    ms_g = cuda_ms(lambda: a2c_g.generate(runs["text"]["mels"], np.zeros(64, np.float32),
+                                          runs["text"]["ratios"]), reps=5)
+    log(f"coeff {at()}: cli infer-coeff --wav ({len(runs['wav']['exp'])} frames) and --text "
+        f"({len(runs['text']['exp'])} frames) in {cli_s:.1f} s; exp against the in-process "
+        f"Audio2Coeff max_abs {json.dumps(cli_diff)} (tolerance {COEFF_CLI_ATOL:.0e}); the card "
+        f"against the CPU (TF32 off) {json.dumps(cpu_rel)} of max|ref| (tolerance "
+        f"{COEFF_RTOL:.0e}); generate of {len(runs['text']['exp'])} frames {ms_g:.2f} ms "
+        f"(CUDA events, the host's copies included)")
+    if max(cli_diff.values()) > COEFF_CLI_ATOL or max(cpu_rel.values()) > COEFF_RTOL \
+            or any(r["exp"].shape != (len(r["mels"]), 64) for r in runs.values()):
+        raise AssertionError("coeff: cli infer-coeff")
+
+    # 3. one audio2exp and one disexp step on the card against the CPU
+    T = len(runs["wav"]["mels"])
+    rng = np.random.default_rng(seed)
+    a2e = {"mels": np.stack([runs["wav"]["mels"]] * 2).astype(np.float32),
+           "expr79": rng.standard_normal((2, T, 79)).astype(np.float32),
+           "expr79_0": rng.standard_normal((2, 79)).astype(np.float32),
+           "ratios": np.stack([runs["wav"]["ratios"][:, 0]] * 2).astype(np.float32)}
+    dis = {"mels": runs["wav"]["mels"].astype(np.float32), "auds_exp": runs["wav"]["exp"],
+           "sad_exp": rng.standard_normal((T, 64)).astype(np.float32)}
+    checks = {}
+    for name, builder, batch in (("audio2exp", audio2exp_trainer.build_audio2exp_step, a2e),
+                                 ("disexp", disexp_trainer.build_disexp_step, dis)):
+        # the same init on both: drawn on the CPU from the same seed
+        res = {}
+        init_c, step_c = builder(device="cpu")[:2]
+        state_c = init_c(torch.Generator().manual_seed(seed), None)
+        init_g, step_g = builder(device=dev)[:2]
+        state_g = init_g(torch.Generator().manual_seed(seed), None)
+        trained = (lambda s: s.netg) if name == "audio2exp" else (lambda s: s.fus)
+        with tf32_off():
+            res["g"] = coeff_step_grads(step_g, state_g, trained(state_g),
+                                        {k: torch.as_tensor(v, device=dev)
+                                         for k, v in batch.items()})
+        res["c"] = coeff_step_grads(step_c, state_c, trained(state_c),
+                                    {k: torch.as_tensor(v) for k, v in batch.items()})
+        errs = grad_rel_l2(res["g"][1], res["c"][1])
+        loss_rel = abs(res["g"][0] - res["c"][0]) / abs(res["c"][0])
+        checks[name] = {"loss_rel": loss_rel, "leaves": len(errs),
+                        "grad_rel_l2_max": max(errs.values()),
+                        "worst": max(errs, key=errs.get)}
+    log(f"coeff {at()}: one step card vs CPU (f32, TF32 off; the gradients each optimizer "
+        f"used): {json.dumps(checks)} (loss tolerance {COEFF_LOSS_RTOL:.0e}, gradients "
+        f"{COEFF_GRAD_REL_L2:.0e} relative L2)")
+    if any(c["loss_rel"] > COEFF_LOSS_RTOL or c["grad_rel_l2_max"] > COEFF_GRAD_REL_L2
+           for c in checks.values()):
+        raise AssertionError("coeff: a trainer step on the card disagrees with the CPU")
+
+    # 4. the expressions drive the fit subject through K1
+    state = load_checkpoint(ckpt_dir, map_location="cpu")
+    cfg = cli._nerf_config(argparse.Namespace(featmap_size=None, img_size=None), state)
+    model, a2s = cli.build_models(cfg, seed, dev, state=state)
+    del state
+    shape_np, appea_np = cli._codes_from_latents(fitted)
+    cam = base_cam(cfg.featmap_size)
+    cam_d = {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}
+    mels = per_frame_mel_chunks(*read_wav_mono(wav))
+    styles = styles_from_mels(a2s, mels)
+    exp = runs["wav"]["exp"]
+    chunk = 4
+    fr.fused_render_fwd.launches = 0
+    frames = animate_sequence(model, shape_np, appea_np, styles, cam_d, expr_seq=exp,
+                              chunk=chunk)
+    k1 = fr.fused_render_fwd.launches
+    base = animate_sequence(model, shape_np, appea_np, styles, cam_d, chunk=chunk)
+    moved = float(np.abs(frames - base).mean())
+    log(f"coeff {at()}: animate_sequence(expr_seq=exp) of the fit subject: {len(frames)} frames "
+        f"{list(frames.shape[1:3])}, range [{frames.min():.3f}, {frames.max():.3f}], K1 launches "
+        f"{k1} (expected {-(-len(exp) // chunk)}); mean |frames - frames without expr_seq| "
+        f"{moved:.4f}")
+    if frames.shape[0] != len(exp) or not np.isfinite(frames).all() or frames.min() < 0 \
+            or frames.max() > 1 or k1 != -(-len(exp) // chunk):
+        raise AssertionError("coeff: animate_sequence(expr_seq=...)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"coeff: phase {phase_s:.1f} s")
+    return {"cli_s": cli_s, "cli_max_abs": cli_diff, "cpu_rel": cpu_rel, "generate_ms": ms_g,
+            "steps": checks, "k1_animate": k1, "expr_moved": moved, "phase_s": phase_s}
 
 
 def _train_setup(seed: int, use_fused: bool = True):
@@ -2476,7 +3008,10 @@ def main() -> int:
     step = phase_train_breakdown(args.seed)
     subject = phase_subject(args.seed, workdir)
     fit = phase_fit(args.seed, workdir)
-    vq = phase_vq(args.seed, workdir, fit.pop("ckpt_dir"))
+    fit_ckpt, fitted = fit.pop("ckpt_dir"), fit.pop("fitted")
+    vq = phase_vq(args.seed, workdir, fit_ckpt)
+    stage2 = phase_stage2(args.seed, workdir, vq.pop("ckpt"), vq.pop("train_frames"))
+    coeff = phase_coeff(args.seed, workdir, fit_ckpt, fitted)
     k5f, k5b = phase_upsampler_kernels(args.seed, build_info["ptxas"])
     ups_serving = phase_serving_upsampler(args.seed, FRAMES, workdir)
     ups_grad = phase_gradient_upsampler(args.seed)
@@ -2507,7 +3042,8 @@ def main() -> int:
                               "subject_validation": subject["k1_validation"],
                               "subject_animate": subject["k1_animate"],
                               "fit": fit["k1_fit"], "render": fit["k1_render"],
-                              "fit_animate": fit["k1_animate"], "vq_renders": vq["k1_renders"]}
+                              "fit_animate": fit["k1_animate"], "vq_renders": vq["k1_renders"],
+                              "coeff_animate": coeff["k1_animate"]}
     k2["launches_by_path"] = {"train_steps": train["k2"],
                               "gradient_fused_upsampler": ups_grad["k2"],
                               "subject_train_steps": subject["k2"], "fit": fit["k2_fit"]}
@@ -2529,7 +3065,8 @@ def main() -> int:
                     "fused_upsampler": {"serving": ups_serving, "gradient": ups_grad},
                     "training": {"steps": train["steps"], "ms_per_step": step["ms_per_step"],
                                  "rays_per_s": step["rays_per_s"], "parity": parity},
-                    "subject": subject, "fit": fit, "vq": vq,
+                    "subject": subject, "fit": fit, "vq": vq, "stage2": stage2,
+                    "coeff": coeff,
                     "mesh": {"epoch_2x2": mesh_train, "parity": mesh_parity, "nccl_1x1": nccl},
                     "build_s": build_info["build_s"], "nvcc": build_info["nvcc"]}))
     log(f"smoke: every phase in {time.perf_counter() - t_start:.1f} s")

@@ -24,6 +24,13 @@
             --ckpt-dir writes the port's checkpoint of both modules
   eval-vq — reconstruct a split through stage 1 (a train-vq --ckpt, else
             seeded weights): gen+ PNGs into --out, metrics as one JSON line
+  infer-stage2 — wav -> wav2vec2 (a local HF directory, or a small seeded
+            encoder) -> CodeTalker's autoregressive codes over the frozen
+            stage-1 codebook (a train-vq --vq-ckpt and a stage-2 --ckpt, or
+            seeded) -> decoded frames [1, T, H*W*3] as .npy
+  infer-coeff — wav (or --text through the placeholder TTS) -> mel chunks
+            -> SadTalker's audio2exp netG (a --safetensors file, else zero
+            expressions) -> exp [T, 64] and smoothed poses as .npz
 
 Runs on `cuda` unless `--device cpu` is given. On the GPU HeadNeRF computes
 in bf16 through the fused render kernels; on the CPU in f32 through the
@@ -414,6 +421,7 @@ VQ_FIELDS = {"img_size": "img_size", "hidden": "hidden_size", "embed_dim": "embe
              "n_embed": "n_embed", "layers": "num_hidden_layers"}
 # the JAX CLI's defaults of those flags, by command
 TRAIN_VQ_DEFAULTS = {"img_size": 256, "hidden": 512, "embed_dim": 64, "n_embed": 8192, "layers": 6}
+# (infer-stage2's are eval-vq's)
 EVAL_VQ_DEFAULTS = {"img_size": 256, "hidden": 64, "embed_dim": 64, "n_embed": 256, "layers": 1}
 
 
@@ -421,6 +429,25 @@ def _vq_config(flags: dict):
     from nerf3dtalker_tpu_torch.config import VQConfig
 
     return VQConfig(**{field: flags[dest] for dest, field in VQ_FIELDS.items()})
+
+
+def _vq_config_of(args, state, defaults: dict, source: str):
+    """The VQConfig of a command that reads a train-vq checkpoint: the
+    checkpoint's (`state`, named `source` in the error; a VQ flag typed
+    beside it that disagrees raises), else the flags, with `defaults` where
+    a flag is not given."""
+    from nerf3dtalker_tpu_torch.config import VQConfig
+
+    flags = {d: getattr(args, d) for d in VQ_FIELDS if getattr(args, d) is not None}
+    if state is None:
+        return _vq_config({**defaults, **flags})
+    cfg = VQConfig(**state["config"])
+    clash = {VQ_FIELDS[d]: (getattr(cfg, VQ_FIELDS[d]), v) for d, v in flags.items()
+             if getattr(cfg, VQ_FIELDS[d]) != v}
+    if clash:
+        raise SystemExit(f"{source}: its VQConfig disagrees with the flags "
+                         f"(field: (checkpoint, flag)) {clash}")
+    return cfg
 
 
 def _vq_random_split(img_size: int, random_labels: bool) -> dict:
@@ -498,24 +525,14 @@ def cmd_eval_vq(args) -> dict:
     import numpy as np
     import torch
 
-    from nerf3dtalker_tpu_torch.config import VQConfig
     from nerf3dtalker_tpu_torch.train.vq_eval import reconstruct_split
     from nerf3dtalker_tpu_torch.train.vq_trainer import init_modules
     from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint
     from nerf3dtalker_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    flags = {d: getattr(args, d) for d in VQ_FIELDS if getattr(args, d) is not None}
     state = load_checkpoint(args.ckpt, map_location="cpu") if args.ckpt else None
-    if state is not None:
-        cfg = VQConfig(**state["config"])
-        clash = {VQ_FIELDS[d]: (getattr(cfg, VQ_FIELDS[d]), v) for d, v in flags.items()
-                 if getattr(cfg, VQ_FIELDS[d]) != v}
-        if clash:
-            raise SystemExit(f"--ckpt {args.ckpt}: its VQConfig disagrees with the flags "
-                             f"(field: (checkpoint, flag)) {clash}")
-    else:
-        cfg = _vq_config({**EVAL_VQ_DEFAULTS, **flags})
+    cfg = _vq_config_of(args, state, EVAL_VQ_DEFAULTS, f"--ckpt {args.ckpt}")
     if args.data:
         with np.load(args.data) as z:
             data = {k: z[k] for k in z.files}
@@ -535,6 +552,155 @@ def cmd_eval_vq(args) -> dict:
     metrics = reconstruct_split(vq, au, data, out_dir=out_dir)
     rec = {"out_dir": out_dir, **metrics, "config": dataclasses.asdict(cfg)}
     print(json.dumps({"out_dir": out_dir, **metrics}))
+    return rec
+
+
+def _stage1(args, dev):
+    """The stage-1 VQAutoEncoder of infer-stage2 on `dev`: a train-vq
+    checkpoint's (--vq-ckpt), else seeded from --seed at `_vq_config_of`'s
+    config."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.models.vq.stage1 import VQAutoEncoder
+    from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint
+    from nerf3dtalker_tpu_torch.utils.device import uninitialized
+
+    state = load_checkpoint(args.vq_ckpt, map_location="cpu") if args.vq_ckpt else None
+    cfg = _vq_config_of(args, state, EVAL_VQ_DEFAULTS, f"--vq-ckpt {args.vq_ckpt}")
+    if state is None:
+        return VQAutoEncoder(cfg, device=dev, generator=torch.Generator().manual_seed(args.seed))
+    vq = uninitialized(lambda d: VQAutoEncoder(cfg, device=d), dev)
+    vq.load_state_dict(state["vq"])
+    return vq
+
+
+# the small seeded encoder of the JAX infer-stage2 without --hf-wav2vec
+SMALL_WAV2VEC = dict(conv_dim=(64, 64), conv_kernel=(10, 3), conv_stride=(5, 2),
+                     hidden_size=768, num_layers=2, num_heads=4, intermediate_size=1024,
+                     num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+
+
+def cmd_infer_stage2(args) -> dict:
+    """Standardized-Space inference from a wav (StandardizedSpace/models/
+    stage2.py:102-155 predict + main/test_pred.py; JAX `cli.py:
+    cmd_infer_stage2`): wav -> wav2vec2 -> CodeTalker's autoregressive codes
+    over the frozen stage-1 codebook -> decoded frames, [1, T, H*W*3] as
+    .npy, and one JSON line (out, frames, img_size, finite, num_frames).
+    --hf-wav2vec is a local HF model directory, else the JAX command's small
+    encoder seeded from 0; --vq-ckpt a train-vq checkpoint directory, else
+    stage 1 seeded from --seed; --ckpt a stage-2 checkpoint directory
+    (`train/stage2_trainer.py:codetalker_payload`), else CodeTalker seeded
+    from --seed + 1 (its code head is zero)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch.data.mel import read_wav_mono
+    from nerf3dtalker_tpu_torch.models.vq.wav2vec import (
+        Wav2Vec2Config,
+        Wav2Vec2Encoder,
+        encode_audio,
+        load_hf_wav2vec2,
+        normalize_wav,
+    )
+    from nerf3dtalker_tpu_torch.train.stage2_trainer import (
+        build_stage2_step,
+        codetalker_from_payload,
+    )
+    from nerf3dtalker_tpu_torch.train.vq_eval import eval_stage2, frame_vq_apply
+    from nerf3dtalker_tpu_torch.utils.checkpoints import load_checkpoint
+    from nerf3dtalker_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    pcm, sr = read_wav_mono(args.wav)
+    T = args.frames or max(1, int(len(pcm) / sr * args.fps))
+    if args.hf_wav2vec:
+        enc = load_hf_wav2vec2(args.hf_wav2vec, device=dev)
+    else:
+        enc = Wav2Vec2Encoder(Wav2Vec2Config(**SMALL_WAV2VEC), device=dev,
+                              generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        wav = torch.as_tensor(pcm[None], dtype=torch.float32, device=dev)
+        feats = encode_audio(enc, normalize_wav(wav), T)
+    del enc
+
+    vq = _stage1(args, dev)
+    vq_apply = frame_vq_apply(vq)
+    V3, L = vq_apply["vertice_dim"], vq_apply["codes_per_frame"]
+    if args.ckpt:
+        model = codetalker_from_payload(load_checkpoint(args.ckpt, map_location="cpu"), dev)
+        want = {"vertice_dim": V3, "audio_dim": feats.shape[-1], "face_quan_num": L,
+                "embed_dim": vq.cfg.embed_dim}
+        have = {**model.dims, "face_quan_num": model.cfg.face_quan_num,
+                "embed_dim": model.cfg.embed_dim}
+        bad = {k: (have[k], v) for k, v in want.items() if have[k] != v}
+        if bad:
+            raise SystemExit(f"--ckpt {args.ckpt} does not fit the stage 1 and the audio "
+                             f"encoder (field: (checkpoint, here)) {bad}")
+        n_subjects = model.dims["n_subjects"]
+        _, _, predict = build_stage2_step(model.cfg, vq_apply, V3, device=dev)
+    else:
+        n_subjects = args.n_subjects
+        init, _, predict = build_stage2_step(
+            dataclasses.replace(vq.cfg, face_quan_num=L), vq_apply, V3,
+            feature_dim=args.feature_dim, n_subjects=n_subjects, audio_dim=feats.shape[-1],
+            device=dev)
+        model = init(torch.Generator().manual_seed(args.seed + 1), None).model
+    model.eval()
+    onehot = torch.nn.functional.one_hot(torch.tensor([args.subject], device=dev),
+                                         n_subjects).float()
+    out_path = args.out or "stage2_frames.npy"
+    metrics = eval_stage2(predict, model, feats, onehot, T, out_path=out_path)
+    S = vq.cfg.img_size
+    frames = np.load(out_path).reshape(1, T, S, S, 3)
+    rec = {"out": out_path, "frames": int(T), "img_size": S,
+           "finite": bool(np.isfinite(frames).all()), **metrics}
+    print(json.dumps(rec))
+    return rec
+
+
+def cmd_infer_coeff(args) -> dict:
+    """Audio -> per-frame expression and pose coefficients (the reference
+    s_inference.py:14-90; JAX `cli.py:cmd_infer_coeff`): a wav, or --text
+    through the placeholder TTS (its wav written beside --out) -> mel chunks
+    -> `Audio2Coeff.generate` (netG from --safetensors, else zero
+    expressions; the blink ratios drawn from --seed; the reference pose
+    zero, smoothed) -> an .npz of exp [T, 64], pose [T, 6], mels and
+    ratios; one JSON line."""
+    import numpy as np
+
+    from nerf3dtalker_tpu_torch.data.mel import (
+        blink_ratio_sequence,
+        per_frame_mel_chunks,
+        read_wav_mono,
+    )
+    from nerf3dtalker_tpu_torch.models.audio2coeff import Audio2Coeff
+    from nerf3dtalker_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if not args.wav and not args.text:
+        raise SystemExit("infer-coeff needs --wav or --text")
+    path = args.out or "coeffs.npz"
+    rec = {}
+    wav_path = args.wav
+    if not wav_path:
+        from nerf3dtalker_tpu_torch.data.tts import synthesize_placeholder
+
+        wav_path = synthesize_placeholder(args.text, os.path.splitext(path)[0] + ".tts.wav")
+        rec["tts"] = wav_path
+    pcm, sr = read_wav_mono(wav_path)
+    mels = per_frame_mel_chunks(pcm, sr=sr, fps=args.fps)
+    T = len(mels)
+    ratios = blink_ratio_sequence(T, np.random.default_rng(args.seed))
+    a2c = Audio2Coeff.from_safetensors(args.safetensors, dev) if args.safetensors \
+        else Audio2Coeff()
+    out = a2c.generate(mels, np.zeros(64, np.float32), ratios,
+                       ref_pose=np.zeros((T, 6), np.float32))
+    np.savez(path, exp=out["exp"], pose=out["pose"], mels=mels, ratios=ratios)
+    rec.update({"out": path, "frames": T, "exp": list(out["exp"].shape),
+                "pose": list(out["pose"].shape), "device": str(dev)})
+    print(json.dumps(rec))
     return rec
 
 
@@ -647,6 +813,42 @@ def main(argv=None):
                      "(its newest checkpoint; its VQConfig is used)")
     pev.add_argument("--out", default="", help="PNG directory (default ./gen+)")
     pev.set_defaults(fn=cmd_eval_vq)
+
+    ps2 = sub.add_parser("infer-stage2", help="wav -> wav2vec2 -> CodeTalker codes -> frames")
+    ps2.add_argument("--wav", required=True)
+    ps2.add_argument("--frames", type=int, default=0, help="default: the wav's length at --fps")
+    ps2.add_argument("--fps", type=int, default=25)
+    ps2.add_argument("--hf-wav2vec", default="", help="local HF Wav2Vec2Model directory "
+                     "(config.json + model.safetensors or pytorch_model.bin)")
+    ps2.add_argument("--vq-ckpt", default="", help="checkpoint directory of train-vq "
+                     "(its newest checkpoint; its VQConfig is used)")
+    ps2.add_argument("--ckpt", default="", help="stage-2 checkpoint directory (CodeTalker "
+                     "and its dims)")
+    note = "default: the --vq-ckpt's config, else the JAX infer-stage2 default"
+    ps2.add_argument("--img-size", type=int, default=None, help=note)
+    ps2.add_argument("--hidden", type=int, default=None, help=note)
+    ps2.add_argument("--embed-dim", type=int, default=None, help=note)
+    ps2.add_argument("--n-embed", type=int, default=None, help=note)
+    ps2.add_argument("--layers", type=int, default=None, help=note)
+    ps2.add_argument("--feature-dim", type=int, default=64, help="without --ckpt")
+    ps2.add_argument("--n-subjects", type=int, default=8, help="without --ckpt")
+    ps2.add_argument("--subject", type=int, default=0)
+    ps2.add_argument("--seed", type=int, default=0, help="seed of the weights --vq-ckpt and "
+                     "--ckpt do not give")
+    ps2.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ps2.add_argument("--out", default="", help="default stage2_frames.npy")
+    ps2.set_defaults(fn=cmd_infer_stage2)
+
+    pi = sub.add_parser("infer-coeff", help="wav or text -> SadTalker exp / pose .npz")
+    pi.add_argument("--wav", default="")
+    pi.add_argument("--text", default="", help="without --wav: the placeholder TTS's wav")
+    pi.add_argument("--safetensors", default="", help="SadTalker checkpoint (its "
+                    "audio2exp.* tensors); without it the expressions are zero")
+    pi.add_argument("--fps", type=int, default=25)
+    pi.add_argument("--seed", type=int, default=0, help="seed of the blink ratios")
+    pi.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pi.add_argument("--out", default="", help="default coeffs.npz")
+    pi.set_defaults(fn=cmd_infer_coeff)
 
     args = p.parse_args(argv)
     # the flags set on the command line, not left at their parser default

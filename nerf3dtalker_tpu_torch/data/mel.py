@@ -1,6 +1,6 @@
 """Mel-spectrogram pipeline, numpy/scipy only (copy of
-`nerf3dtalker_tpu/data/mel.py`: `read_wav_mono`, `per_frame_mel_chunks`
-and their helpers).
+`nerf3dtalker_tpu/data/mel.py`: `read_wav_mono`, `per_frame_mel_chunks`,
+`blink_ratio_sequence` and their helpers).
 
 Reference s_utils/audio.py:9-124 with hparams.py:15-60: 16 kHz, n_fft 800,
 hop 200, win 800, 80 Slaney mels in [55, 7600] Hz, preemphasis 0.97,
@@ -121,6 +121,24 @@ def per_frame_mel_chunks(
         seq = np.clip(np.arange(start, start + mel_step), 0, mel.shape[0] - 1)
         chunks.append(mel[seq].T)
     return np.stack(chunks).astype(np.float32)
+
+
+def blink_ratio_sequence(num_frames: int, rng: np.random.Generator) -> np.ndarray:
+    """Random eye-blink ratio curve [T, 1] from `rng`, the JAX function's
+    draws (data_loader_xgaze_new.py:600-612): none under 21 frames; else
+    5-frame blinks (0.5, 0.9, 1, 0.9, 0.5) at random gaps."""
+    ratio = np.zeros((num_frames, 1), np.float32)
+    if num_frames <= 20:
+        return ratio
+    frame_id = 0
+    while frame_id < num_frames:
+        start = int(rng.integers(min(10, num_frames), min(num_frames // 2, 70)))
+        if frame_id + start + 5 <= num_frames - 1:
+            ratio[frame_id + start : frame_id + start + 5, 0] = [0.5, 0.9, 1.0, 0.9, 0.5]
+            frame_id = frame_id + start + 5
+        else:
+            break
+    return ratio
 
 
 def read_wav_mono(path: str, target_sr: int = 16000):

@@ -1,9 +1,9 @@
 """Transformer building blocks of the Standardized Space (port of
 `nerf3dtalker_tpu/models/vq/transformer.py`; reference
 `models/lib/base_models.py:9-327`): self-attention, the GELU MLP, pre-LN
-blocks x += attn(LN(x)); x += mlp(LN(x)), their stack, the linear embedding
-and the sin/cos position table. Stage-2's cross-modal attention and biased
-causal mask are not ported yet.
+blocks x += attn(LN(x)); x += mlp(LN(x)), their stack, the linear embedding,
+the sin/cos position table, and stage 2's cross-modal attention and biased
+causal mask.
 
 Parameters carry the flax module names (`to_qkv`, `to_out`, `l1`, `l2`,
 `norm1`, `norm2`, `proj`; block i of a stack is `blocks.{i}`), so
@@ -28,12 +28,17 @@ _TRUNC_STD = 0.87962566103423978
 
 @torch.no_grad()
 def _trunc_normal_(w: torch.Tensor, std: float, generator: Optional[torch.Generator]) -> None:
-    """N(0, std^2) truncated to +-2 std, by redrawing the values outside."""
+    """N(0, std^2) truncated to +-2 std, by redrawing the values outside
+    (in index order, until none is left; only the redrawn are tested
+    again). A meta tensor holds no values: it is left as it is."""
+    if w.is_meta:
+        return
     w.normal_(0.0, std, generator=generator)
-    bad = w.abs() > 2 * std
-    while bad.any():
-        w[bad] = torch.randn(int(bad.sum()), generator=generator) * std
-        bad = w.abs() > 2 * std
+    flat = w.view(-1)
+    idx = (flat.abs() > 2 * std).nonzero().squeeze(1)
+    while idx.numel():
+        flat[idx] = torch.randn(idx.numel(), generator=generator) * std
+        idx = idx[flat[idx].abs() > 2 * std]
 
 
 def flax_init_(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
@@ -69,6 +74,33 @@ class Attention(nn.Module):
             dots = dots + mask
         out = torch.softmax(dots, dim=-1) @ v
         return self.to_out(out.transpose(1, 2).reshape(B, N, self.dim))
+
+
+class CrossModalAttention(nn.Module):
+    """q from modality a, k and v from modality b (base_models.py:63-105);
+    the scores scaled by the FULL width's dim^-0.5, as in Attention."""
+
+    def __init__(self, dim: int, heads: int = 8):
+        super().__init__()
+        self.dim, self.heads = dim, heads
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_kv = nn.Linear(dim, dim * 2, bias=False)
+        self.to_out = nn.Linear(dim, dim)
+
+    def forward(self, x_a: torch.Tensor, x_b: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, Na, _ = x_a.shape
+
+        def heads_first(t):
+            return t.reshape(B, t.shape[1], self.heads, self.dim // self.heads).transpose(1, 2)
+
+        q = heads_first(self.to_q(x_a))
+        k, v = map(heads_first, self.to_kv(x_b).chunk(2, dim=-1))
+        dots = (q @ k.transpose(-1, -2)) * self.dim ** -0.5
+        if mask is not None:
+            dots = dots + mask
+        out = torch.softmax(dots, dim=-1) @ v
+        return self.to_out(out.transpose(1, 2).reshape(B, Na, self.dim))
 
 
 class MLP(nn.Module):
@@ -129,3 +161,12 @@ def sinusoidal_positions(n: int, dim: int, device=None, dtype=torch.float32) -> 
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
+
+
+def biased_causal_mask(n: int, period: int = 1, device=None) -> torch.Tensor:
+    """ALiBi-style biased causal mask [n, n] (reference models/stage2.py
+    :27-29): -inf above the diagonal plus -|floor((i - j) / period)|."""
+    i = torch.arange(n, device=device)[:, None]
+    j = torch.arange(n, device=device)[None, :]
+    causal = torch.where(j > i, float("-inf"), 0.0)
+    return causal - torch.div(i - j, max(period, 1), rounding_mode="floor").abs().float()

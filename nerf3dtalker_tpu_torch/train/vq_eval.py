@@ -1,12 +1,17 @@
-"""Standardized-Space evaluation (port of `nerf3dtalker_tpu/train/vq_eval.py`'s
-`reconstruct_split`; reference StandardizedSpace/main/test_vq.py:52-150).
-Stage-2's `frame_vq_apply` and `eval_stage2` are not ported yet.
+"""Standardized-Space evaluation (port of `nerf3dtalker_tpu/train/vq_eval.py`):
+
+  * `reconstruct_split` — StandardizedSpace/main/test_vq.py:52-150: the
+    AU-conditioned stage-1 reconstruction of a split, `gen+` PNGs, metrics;
+  * `frame_vq_apply` — the frozen stage-1 autoencoder as stage 2's
+    get_gt_quant / quantize / decode over frame sequences;
+  * `eval_stage2` — main/test_pred.py + cal_metric.py:7-80: CodeTalker's
+    autoregressive prediction scored by LVE / FDD.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -14,6 +19,7 @@ from torch import nn
 
 from nerf3dtalker_tpu_torch.models.vq.stage1 import VQAutoEncoder
 from nerf3dtalker_tpu_torch.train.vq_trainer import au_forward, to_batch
+from nerf3dtalker_tpu_torch.utils.mesh_metrics import fdd, lip_vertex_error
 from nerf3dtalker_tpu_torch.utils.video import write_png
 
 
@@ -60,3 +66,71 @@ def reconstruct_split(vq: VQAutoEncoder, au: nn.ModuleList, data: Mapping[str, n
         out["rec_l1"] = float(np.mean(l1s))
         out["rec_psnr"] = float(np.mean(psnrs))
     return out
+
+
+def frame_vq_apply(vq: VQAutoEncoder) -> Dict:
+    """The stage-1 autoencoder, frozen (its parameters no longer require
+    gradients), as stage 2's `vq_apply` over frame sequences: each "motion"
+    frame is one image flattened to V3 = H * W * 3, encoded to
+    `codes_per_frame` codes (read from the encoder's output on one frame).
+    The reference composes CodeTalker with the same stage-1 model
+    (stage2.py:43-46); as in JAX, the decode passes zero AU codes (the
+    reference's predict() feeds only the face codes, stage2.py:141-152).
+
+      get_gt_quant(motion [B, T, V3]) -> [B, T * L, e] (no gradient)
+      quantize(codes [B, N, e]) -> (straight-through codes, indices)
+      decode(quant [B, T * L, e]) -> [B, T, V3]
+    """
+    cfg = vq.cfg
+    vq.requires_grad_(False)
+    H = W = cfg.img_size
+    V3 = H * W * 3
+    dev = next(vq.parameters()).device
+    with torch.no_grad():
+        h = vq.encoder(torch.zeros(1, H, W, 3, device=dev))
+    codes_per_frame = h.numel() // cfg.embed_dim
+
+    @torch.no_grad()
+    def get_gt_quant(motion):
+        B, T, _ = motion.shape
+        q = vq.encode(motion.reshape(B * T, H, W, 3))
+        return q.quantized.reshape(B, -1, cfg.embed_dim)
+
+    def quantize(codes):
+        out = vq.quantize(codes)
+        return out.quantized, out.indices
+
+    def decode(quant):
+        B = quant.shape[0]
+        qi = quant.reshape(-1, codes_per_frame, cfg.embed_dim)
+        qa = torch.zeros(qi.shape[0], cfg.n_au, cfg.embed_dim, dtype=quant.dtype,
+                         device=quant.device)
+        return vq.decode(qi, qa).reshape(B, -1, V3)
+
+    return {"get_gt_quant": get_gt_quant, "quantize": quantize, "decode": decode,
+            "codes_per_frame": codes_per_frame, "vertice_dim": V3}
+
+
+def eval_stage2(predict_fn, model, audio_feats: torch.Tensor, onehot: torch.Tensor,
+                num_frames: int, verts_gt: Optional[np.ndarray] = None,
+                template: Optional[np.ndarray] = None,
+                mouth_map: Optional[Sequence[int]] = None,
+                upper_map: Optional[Sequence[int]] = None,
+                out_path: Optional[str] = None) -> Dict[str, float]:
+    """test_pred's driver: `predict_fn` (`build_stage2_step`'s predict) of
+    `num_frames` frames, saved to `out_path` (.npy, [B, T, V3]) when given;
+    with `verts_gt` [T, V, 3] the LVE over `mouth_map` (default every
+    vertex) and, with `template` [V, 3], the FDD over `upper_map`."""
+    pred = predict_fn(model, audio_feats, onehot, num_frames).cpu().numpy()
+    if out_path:
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        np.save(out_path, pred)
+    metrics: Dict[str, float] = {"num_frames": float(num_frames)}
+    if verts_gt is not None:
+        vp = pred[0].reshape(num_frames, -1, 3)
+        mouth = mouth_map if mouth_map is not None else range(vp.shape[1])
+        metrics["LVE"] = lip_vertex_error(verts_gt, vp, list(mouth))
+        if template is not None:
+            upper = upper_map if upper_map is not None else range(vp.shape[1])
+            metrics["FDD"] = fdd(verts_gt, vp, template, list(upper))
+    return metrics

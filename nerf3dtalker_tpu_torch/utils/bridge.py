@@ -22,6 +22,11 @@ A flax tree is the variables dict `{"params": {...}}` of numpy arrays that
                scale -> weight; quantize{,_au}/embedding the same
   AUClassifier stacked [n_au, ...] leaves -> classifier i of the ModuleList;
                linear0's rows from the NHWC flatten to the NCHW one
+  Wav2Vec2Encoder, FusAudio2Style  the same module paths, as VQAutoEncoder
+  CodeTalker   the same module paths; style_emb/embedding -> style_emb.weight
+  SimpleWrapperV2  enc_{i}/conv -> audio_encoder.{i}.conv_block.0, enc_{i}/bn
+               (scale, bias; batch_stats mean, var) -> conv_block.1 (weight,
+               bias, running_mean, running_var), mapping1 the same
 Dense kernels are [in, out]; torch Linear weights are [out, in]. Conv
 kernels are HWIO (WIO in 1-d); torch Conv2d weights are OIHW (Conv1d OIW).
 """
@@ -135,8 +140,33 @@ def _flat_state_dict(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def vq_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
-    """VQAutoEncoder flax params -> the port VQAutoEncoder's state_dict."""
+    """Flax params of a port module that keeps the flax module names
+    (VQAutoEncoder; also Wav2Vec2Encoder, FusAudio2Style) -> its state_dict."""
     return _flat_state_dict(_inner(tree))
+
+
+def codetalker_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
+    """CodeTalker flax params -> the port CodeTalker's state_dict."""
+    sd = _flat_state_dict(_inner(tree))
+    sd["style_emb.weight"] = sd.pop("style_emb.embedding")
+    return sd
+
+
+def simple_wrapper_v2_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """SimpleWrapperV2 flax variables {params, batch_stats} -> the port
+    SimpleWrapperV2's state_dict (num_batches_tracked 0)."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd = _linear(p["mapping1"], "mapping1")
+    for i in range(13):
+        conv, bn = f"audio_encoder.{i}.conv_block.0", f"audio_encoder.{i}.conv_block.1"
+        sd.update({f"{conv}.{k}": v for k, v in
+                   (_torch_leaf(n, x) for n, x in p[f"enc_{i}"]["conv"].items())})
+        sd[f"{bn}.weight"] = _np(p[f"enc_{i}"]["bn"]["scale"])
+        sd[f"{bn}.bias"] = _np(p[f"enc_{i}"]["bn"]["bias"])
+        sd[f"{bn}.running_mean"] = _np(stats[f"enc_{i}"]["bn"]["mean"])
+        sd[f"{bn}.running_var"] = _np(stats[f"enc_{i}"]["bn"]["var"])
+        sd[f"{bn}.num_batches_tracked"] = np.zeros((), np.int64)
+    return sd
 
 
 def au_classifiers_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:

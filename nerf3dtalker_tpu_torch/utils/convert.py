@@ -20,6 +20,11 @@ in:
   * AU classifier (`classifier_AU`, train_vq.py:60-93): NCHW like the
     port's, so no permutation: `conv{i}.0` -> `conv{i}`, `linear{0..3}.0`
     -> `linear{0..3}`, `linear4` the same.
+  * SadTalker's audio2exp netG (s_audio2exp_models/networks.py:26-74, the
+    `audio2exp` safetensors tensors with their prefixes stripped): the port
+    SimpleWrapperV2 keeps the reference's names and NCHW layout, so
+    `audio_encoder.{i}.conv_block.{0,1}` (Conv2d, BatchNorm2d with its
+    running statistics) and `mapping1` carry over as they are.
 
 The other converters of the JAX module come with their models.
 """
@@ -128,6 +133,22 @@ def convert_au_classifier(sd: Mapping) -> Dict[str, np.ndarray]:
     for i in range(4):
         out.update(_linear(sd, f"linear{i}.0", f"linear{i}"))
     out.update(_linear(sd, "linear4", "linear4"))
+    return out
+
+
+def convert_simple_wrapper_v2(sd: Mapping) -> Dict[str, np.ndarray]:
+    """SadTalker netG state dict -> the port SimpleWrapperV2's state dict
+    (f32; a BatchNorm's `num_batches_tracked` as stored, else 0)."""
+    out = {}
+    for i in range(13):
+        conv, bn = f"audio_encoder.{i}.conv_block.0", f"audio_encoder.{i}.conv_block.1"
+        out[f"{conv}.weight"] = _np(sd[f"{conv}.weight"]).astype(np.float32)
+        out[f"{conv}.bias"] = _bias(sd, conv)
+        for name in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{bn}.{name}"] = _np(sd[f"{bn}.{name}"]).astype(np.float32)
+        out[f"{bn}.num_batches_tracked"] = np.asarray(
+            _np(sd.get(f"{bn}.num_batches_tracked", 0)), np.int64).reshape(())
+    out.update(_linear(sd, "mapping1", "mapping1"))
     return out
 
 

@@ -17,3 +17,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def uninitialized(factory, device: Optional[Union[str, torch.device]] = None):
+    """`factory(device)` built on the meta device, with no init (the port's
+    `_trunc_normal_` skips meta tensors), then given uninitialized storage on
+    `device` (default `cuda`): for a module whose every parameter and buffer
+    the caller loads next."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        module = factory(torch.device("meta"))
+    return module.to_empty(device=dev)

@@ -243,3 +243,62 @@ def _vq_init(seed, crop):
 
     return (jax.tree_util.tree_map_with_path(lambda p, x: fill(p, x, False), state.vq_params),
             jax.tree_util.tree_map_with_path(lambda p, x: fill(p, x, True), state.au_params))
+
+
+def seeded_variables(init_fn, *args, seed=0, **kw):
+    """Variables in the shapes of `jax.eval_shape(init_fn, key(seed), ...)`
+    (no init compiles), numpy values from `seed`: kernels and embeddings
+    N(0, 1/fan_in), LayerNorm / GroupNorm / BatchNorm scales 1 + N(0, 0.1^2),
+    BatchNorm running means N(0, 0.1^2) and variances in [0.5, 1.5], other
+    leaves (biases) N(0, 0.05^2): every path nonzero."""
+    shapes = jax.eval_shape(init_fn, jax.random.key(seed), *args, **kw)
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = str(path[-1].key)
+        noise = rng.standard_normal(leaf.shape)
+        if name in ("kernel", "embedding"):
+            value = noise / np.sqrt(np.prod(leaf.shape[:-1]))
+        elif name == "scale":
+            value = 1.0 + 0.1 * noise
+        elif name == "mean":
+            value = 0.1 * noise
+        elif name == "var":
+            value = rng.uniform(0.5, 1.5, leaf.shape)
+        else:
+            value = 0.05 * noise
+        return value.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+# the tiny wav2vec2 of the port's parity tests
+W2V_TINY = dict(conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2), hidden_size=32,
+                num_layers=2, num_heads=4, intermediate_size=64, num_conv_pos_embeddings=16,
+                num_conv_pos_embedding_groups=4)
+
+
+@functools.lru_cache(maxsize=None)
+def wav2vec_tiny(seed=0):
+    """(module, seeded variables, `fast_jit` apply) of the JAX
+    Wav2Vec2Encoder at W2V_TINY."""
+    from nerf3dtalker_tpu.models.vq.wav2vec import Wav2Vec2Encoder
+
+    mod = Wav2Vec2Encoder(**W2V_TINY)
+    params = seeded_variables(mod.init, jnp.zeros((1, 1600)), seed=seed)
+    return mod, params, fast_jit(mod.apply)
+
+
+def fast_jit(fn):
+    """`fn` jitted and compiled with FAST_COMPILE, once per shape and dtype
+    of its array arguments (pass anything static through a partial)."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        key = tuple((np.shape(a), np.result_type(a).str)
+                    for a in jax.tree_util.tree_leaves(args))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(compiler_options=FAST_COMPILE)
+        return compiled[key](*args)
+
+    return call

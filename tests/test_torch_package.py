@@ -9,7 +9,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nerf3dtalker_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nerf3dtalker_tpu", "transformers",
+             "safetensors")
 
 
 def _port_sources():
@@ -49,6 +50,18 @@ def test_import_rule_covers_the_standardized_space_and_the_converters():
                                "models/vq/au_classifier.py", "train/vq_trainer.py",
                                "train/vq_eval.py", "utils/convert.py",
                                "scripts/vq_run.py")} <= names
+
+
+def test_import_rule_covers_stage2_and_the_sadtalker_path():
+    """The rule above (which also forbids `transformers` and `safetensors`)
+    reaches stage 2's modules, its trainer and the SadTalker path."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    port = "nerf3dtalker_tpu_torch/"
+    assert {port + f for f in ("models/vq/wav2vec.py", "models/vq/stage2.py",
+                               "train/stage2_trainer.py", "utils/mesh_metrics.py",
+                               "models/audio.py", "models/audio2coeff.py",
+                               "models/audio2pose.py", "data/ingest.py", "data/tts.py",
+                               "train/audio2exp_trainer.py", "train/disexp_trainer.py")} <= names
 
 
 def test_kernel_source_is_in_the_package():
@@ -124,8 +137,21 @@ def test_entry_points_without_cuda_raise(no_cuda, tmp_path):
         VQAutoEncoder(VQConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AUClassifier()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["infer-stage2", "--wav", str(wav), "--out", str(tmp_path / "s2.npy")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["infer-coeff", "--wav", str(wav), "--out", str(tmp_path / "c.npz")])
+    from nerf3dtalker_tpu_torch.models.audio import FusAudio2Style, SimpleWrapperV2
+    from nerf3dtalker_tpu_torch.models.vq.stage2 import CodeTalker
+    from nerf3dtalker_tpu_torch.models.vq.wav2vec import Wav2Vec2Encoder
+
+    for make in (Wav2Vec2Encoder, lambda: CodeTalker(VQConfig()), SimpleWrapperV2,
+                 FusAudio2Style):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
     assert not list(tmp_path.glob("fitted.npz")) and not list(tmp_path.glob("views.npy"))
     assert not list(tmp_path.glob("vq_ckpt")) and not list(tmp_path.glob("gen+"))
+    assert not list(tmp_path.glob("s2.npy")) and not list(tmp_path.glob("c.npz"))
 
 
 def test_cpu_tensor_runs_plain_version_cuda_request_raises(no_cuda):
