@@ -85,6 +85,19 @@ Phases (any failure exits non-zero):
                 against the CPU; the expressions driving 4c's fitted subject
                 through `animate_sequence(expr_seq=...)` (K1 launches
                 counted);
+  4g. preprocess — subject preprocessing: BiSeNet at 512^2 (B=2), FAN
+                with 1 and 4 stacks at 256^2 and ReconNet at 224^2 on the card
+                against the CPU (f32, TF32 off, the same seeded weights), and
+                render_nl3dmm at the 7x7 mesh, 512^2, B=4 (winners, image,
+                gradients to the codes and the camera); `cli preprocess
+                --strict --featmap-size 64` of 16 frames of 512^2 and a
+                seeded wav (BiSeNet, FAN, the NL3DMM fit at (10, 20)
+                iterations, netG), equal to preprocess_subject in process
+                (each stage timed; the fit's loss falls); `cli train --data`
+                on its .npz for one epoch (K1 and K2 launches counted); the
+                full-size rasterizer (render_nl3dmm forward and backward on a
+                186 x 186 grid, 68,450 faces, B=1, 512^2: ms and peak
+                bytes); at most PREP_LIMIT_S seconds;
   5. fused upsampler — serve 8 Reso64 frames through `animate_sequence`
                 with `HeadNeRF(use_fused=True, use_fused_upsampler=True)`
                 (K1 and K5-fwd launches counted, frames held against the
@@ -1991,6 +2004,373 @@ def phase_coeff(seed: int, workdir: str, ckpt_dir: str, fitted: str):
             "steps": checks, "k1_animate": k1, "expr_moved": moved, "phase_s": phase_s}
 
 
+# the preprocess phase: 16 frames of 512^2 (Reso64's image size) and a
+# 16-frame wav through `cli preprocess --strict --featmap-size 64`, then
+# `cli train --data` on what it wrote (15 train frames: 7 steps of B=2, one
+# validation frame)
+PREP_FRAMES = 16
+PREP_TRAIN_STEPS = (PREP_FRAMES - max(1, PREP_FRAMES // 10)) // 2
+PREP_LIMIT_S = 45.0
+# card against CPU (f32, TF32 off; BiSeNet B=2, FAN and ReconNet B=1, the
+# CPU's forward being most of the check's time): network outputs by
+# relative L2, the parsing argmax and the decoded landmarks by the share
+# that agrees
+PREP_NET_REL_L2 = 1e-4
+PREP_ARGMAX_AGREE = 0.99
+PREP_LM_AGREE = 0.95
+# render_nl3dmm card against CPU: winners on >= 99.9 % of the pixels, the
+# image by max|err| / max|ref|, the gradients by relative L2
+PREP_FACE_AGREE = 0.999
+PREP_IMAGE_RTOL = 1e-5
+PREP_GRAD_REL_L2 = 1e-3
+# the CLI's .npz against preprocess_subject in process (same card, seeds)
+PREP_CLI_ATOL = 1e-6
+# the full-size rasterizer: a 186 x 186 grid, 34,596 points and 68,450
+# faces (the size class of the NL3DMM's 34,650 points), B=1 at 512^2
+FULL_MESH_GRID = 186
+
+
+def seeded_weights_(module, seed: int):
+    """Every weight and buffer of `module` drawn from `seed` (fast, not the
+    flax init): conv / linear weights N(0, 1/fan_in), BatchNorm weights
+    1 + N(0, 0.1^2), running means N(0, 0.1^2), variances in [0.5, 1.5],
+    other vectors N(0, 0.05^2)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            noise = torch.randn(t.shape, generator=g)
+            if name.endswith("running_var"):
+                v = torch.rand(t.shape, generator=g) + 0.5
+            elif name.endswith("running_mean"):
+                v = 0.1 * noise
+            elif t.dim() > 1:
+                v = noise / math.sqrt(t[0].numel())
+            elif name.endswith("weight"):
+                v = 1.0 + 0.1 * noise
+            else:
+                v = 0.05 * noise
+            t.copy_(v.to(t.device))
+    return module
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def nl3dmm_on(G: int, seed: int, device):
+    """(geo, tex) NL3DMM modules at a G x G mesh on `device`: the frontal
+    grid as geo_fc3's bias, small seeded weights."""
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch.models.face3d.nl3dmm import Linear3DMMTexture, NonLinear3DMM
+    from nerf3dtalker_tpu_torch.utils.device import uninitialized
+
+    geo = uninitialized(lambda d: NonLinear3DMM(point_num=G * G, device=d), device)
+    tex = uninitialized(lambda d: Linear3DMMTexture(point_num=G * G, device=d), device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    xs, ys = np.meshgrid(np.linspace(-0.5, 0.5, G), np.linspace(-0.5, 0.5, G))
+    grid = np.stack([xs, ys, np.zeros_like(xs)], -1).reshape(-1).astype(np.float32)
+    with torch.no_grad():
+        geo.geo_fc2.weight.normal_(0.0, 179 ** -0.5, generator=g)
+        geo.geo_fc2.bias.normal_(0.0, 0.05, generator=g)
+        geo.geo_fc3.weight.normal_(0.0, 0.02 / 32, generator=g)
+        geo.geo_fc3.bias.copy_(torch.as_tensor(grid))
+        tex.b_tex.normal_(0.0, 0.01, generator=g)
+        tex.mu_tex.uniform_(0.3, 0.7, generator=g)
+        tex.sig_tex.uniform_(0.5, 1.5, generator=g)
+    return geo.requires_grad_(False), tex.requires_grad_(False)
+
+
+def nl3dmm_inmat(S: int, B: int, device):
+    """`build_appliers`' intrinsics at S^2 (focal 1.2 S, the centre), B
+    times."""
+    import torch
+
+    f = S * 1.2
+    return torch.tensor([[[f, 0.0, S / 2], [0.0, f, S / 2], [0.0, 0.0, 1.0]]],
+                        device=device).repeat(B, 1, 1)
+
+
+def nl3dmm_grads(geo, tex, codes, faces, lm_index, S: int, weights):
+    """(render, {leaf: gradient}) of sum(image * w_img) + sum(lm2d * w_lm)
+    through render_nl3dmm, the gradients w.r.t. the four codes and the
+    camera (Euler angles, translation)."""
+    import torch
+
+    from nerf3dtalker_tpu_torch.models.face3d.nl3dmm import render_nl3dmm
+    from nerf3dtalker_tpu_torch.utils.rotations import euler_to_rmat
+
+    dev = geo.geo_fc2.weight.device
+    leaves = {k: v.to(dev).clone().requires_grad_(True) for k, v in codes.items()}
+    inmat = nl3dmm_inmat(S, leaves["iden"].shape[0], dev)
+    r = render_nl3dmm(geo, tex, leaves["iden"], leaves["expr"], leaves["text"],
+                      leaves["gamma"], euler_to_rmat(leaves["euler"]), leaves["tvec"], inmat,
+                      faces.to(dev), lm_index.to(dev), S, S)
+    loss = (r.image * weights[0].to(dev)).sum() + (r.lm2d * weights[1].to(dev)).sum()
+    return r, dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def nl3dmm_codes(B: int, seed: int, tz: float = 5.0):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return {"iden": 0.3 * torch.randn(B, 100, generator=g),
+            "expr": 0.3 * torch.randn(B, 79, generator=g),
+            "text": 0.3 * torch.randn(B, 100, generator=g),
+            "gamma": 0.2 * torch.randn(B, 27, generator=g),
+            "euler": 0.3 * torch.rand(B, 3, generator=g) - 0.15,
+            "tvec": torch.tensor([[0.0, 0.0, tz]]) + 0.4 * torch.rand(B, 3, generator=g) - 0.2}
+
+
+def phase_preprocess(seed: int, workdir: str):
+    """Subject preprocessing: the networks and the NL3DMM render on the card
+    against the CPU; `cli preprocess --strict` on 16 frames of 512^2 against
+    preprocess_subject in process (stage times, the fit's loss); `cli train
+    --data` on its .npz through K1/K2; the full-size rasterizer's time and
+    peak memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.data.dataset import REQUIRED_KEYS, coherent_subject
+    from nerf3dtalker_tpu_torch.data.mel import read_wav_mono
+    from nerf3dtalker_tpu_torch.data.preprocess import (
+        build_appliers,
+        grid_mesh,
+        linear_resize,
+        preprocess_subject,
+    )
+    from nerf3dtalker_tpu_torch.models.bisenet import BiSeNet
+    from nerf3dtalker_tpu_torch.models.face3d.rasterizer import (
+        project_perspective,
+        rasterize_mesh,
+    )
+    from nerf3dtalker_tpu_torch.models.fan import FAN, decode_heatmaps
+    from nerf3dtalker_tpu_torch.models.resnets import ReconNet
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.train.trainer import Trainer
+    from nerf3dtalker_tpu_torch.utils.device import uninitialized
+
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"[{time.perf_counter() - t_phase:.1f} s]"
+
+    dev = torch.device(DEVICE)
+    cfg = train_config()
+    S = cfg.pred_img_size
+    frames = coherent_subject(cfg, num_frames=PREP_FRAMES, seed=seed).arrays["images"]
+    frames_path = os.path.join(workdir, "prep_frames.npy")
+    np.save(frames_path, frames)
+    wav = os.path.join(workdir, "prep.wav")
+    write_wav(wav, seed + 5, PREP_FRAMES)
+
+    # 1. the networks on the card against the CPU, the same weights
+    x512 = torch.as_tensor(frames[:2]).permute(0, 3, 1, 2).contiguous()
+    x256 = linear_resize(x512[:1], (256, 256))
+    x224 = linear_resize(x512[:1], (224, 224))
+    nets = {}
+    for name, factory, x in (("bisenet_512", lambda d: BiSeNet(device=d), x512),
+                             ("fan1_256", lambda d: FAN(n_stacks=1, device=d), x256),
+                             ("fan4_256", lambda d: FAN(n_stacks=4, device=d), x256),
+                             ("recon_224", lambda d: ReconNet(device=d), x224)):
+        cpu = seeded_weights_(uninitialized(factory, "cpu"), seed + len(nets)).eval()
+        card = uninitialized(factory, dev)
+        card.load_state_dict(cpu.state_dict())
+        card.eval()
+        with torch.no_grad(), tf32_off():
+            out_g = card(x.to(dev))
+            out_c = cpu(x)
+        out_g = out_g if isinstance(out_g, tuple) else (out_g,)
+        out_c = out_c if isinstance(out_c, tuple) else (out_c,)
+        rec = {"rel_l2": max(rel_l2(g, c) for g, c in zip(out_g, out_c))}
+        if name.startswith("bisenet"):
+            rec["argmax_agree"] = float((out_g[0].argmax(1).cpu() == out_c[0].argmax(1))
+                                        .float().mean())
+        if name.startswith("fan"):
+            lg, lc = decode_heatmaps(out_g[0]).cpu(), decode_heatmaps(out_c[0])
+            rec["landmarks_agree"] = float((lg == lc).all(-1).float().mean())
+        nets[name] = rec
+        del card, cpu
+    log(f"preprocess {at()}: networks on the card against the CPU (f32, TF32 off, seeded "
+        f"weights; BiSeNet B=2, FAN and ReconNet B=1): {json.dumps(nets)} (relative L2 "
+        f"tolerance {PREP_NET_REL_L2:.0e}, argmax {PREP_ARGMAX_AGREE}, landmarks "
+        f"{PREP_LM_AGREE})")
+    if any(r["rel_l2"] > PREP_NET_REL_L2 or r.get("argmax_agree", 1) < PREP_ARGMAX_AGREE
+           or r.get("landmarks_agree", 1) < PREP_LM_AGREE for r in nets.values()):
+        raise AssertionError("preprocess: a network on the card disagrees with the CPU")
+
+    # 2. render_nl3dmm at the 7 x 7 mesh, 512^2, B=4: card against CPU
+    G, B = 7, 4
+    faces, lm_index = grid_mesh(G), torch.arange(68) % (G * G)
+    codes = nl3dmm_codes(B, seed)
+    gw = torch.Generator().manual_seed(seed + 1)
+    weights = (torch.randn(B, S, S, 3, generator=gw), torch.randn(B, 68, 2, generator=gw))
+    geo_g, tex_g = nl3dmm_on(G, seed, dev)
+    geo_c, tex_c = nl3dmm_on(G, seed, "cpu")
+    geo_c.load_state_dict(geo_g.state_dict())
+    tex_c.load_state_dict(tex_g.state_dict())
+    with tf32_off():
+        r_g, gr_g = nl3dmm_grads(geo_g, tex_g, codes, faces, lm_index, S, weights)
+    r_c, gr_c = nl3dmm_grads(geo_c, tex_c, codes, faces, lm_index, S, weights)
+    with torch.no_grad():      # the winners of each side's own vertices
+        fi_g, fi_c = (rasterize_mesh(project_perspective(r.verts_cam, nl3dmm_inmat(S, B, dev_)),
+                                     faces.to(dev_), S, S).face_idx.cpu()
+                      for r, dev_ in ((r_g, dev), (r_c, "cpu")))
+    render = {"face_idx_agree": float((fi_g == fi_c).float().mean()),
+              "coverage": float(r_c.mask.mean()),
+              "image_rel": float((r_g.image.detach().cpu() - r_c.image.detach()).abs().max()
+                                 / r_c.image.detach().abs().max()),
+              "lm2d_rel": float((r_g.lm2d.detach().cpu() - r_c.lm2d.detach()).abs().max()
+                                 / r_c.lm2d.detach().abs().max()),
+              "grad_rel_l2": {k: rel_l2(gr_g[k], gr_c[k]) for k in gr_c}}
+    log(f"preprocess {at()}: render_nl3dmm {G}x{G} mesh, {S}^2, B={B}, card against CPU: "
+        f"{json.dumps(render)} (winners {PREP_FACE_AGREE}, image {PREP_IMAGE_RTOL:.0e}, "
+        f"gradients {PREP_GRAD_REL_L2:.0e} relative L2)")
+    if render["face_idx_agree"] < PREP_FACE_AGREE or render["image_rel"] > PREP_IMAGE_RTOL \
+            or max(render["grad_rel_l2"].values()) > PREP_GRAD_REL_L2 \
+            or not 0 < render["coverage"] < 1:
+        raise AssertionError("preprocess: render_nl3dmm on the card disagrees with the CPU")
+    del geo_g, tex_g, geo_c, tex_c, r_g, r_c
+
+    # 3. cli preprocess --strict, and the same run in process, its stages timed
+    out = os.path.join(workdir, "prep_subject.npz")
+    t0 = time.perf_counter()
+    rec = cli.main(["preprocess", "--frames", frames_path, "--wav", wav, "--featmap-size",
+                    str(cfg.featmap_size), "--seed", str(seed), "--strict", "--device", DEVICE,
+                    "--out", out])
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    app = build_appliers(S, seed=seed, fit_iters=(10, 20), device=dev)
+    build_s = time.perf_counter() - t0
+    stage_ms, fits = {}, []
+
+    def timed(name, fn, per):
+        def run(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            y = fn(*args)
+            b.record()
+            b.synchronize()
+            stage_ms[name] = a.elapsed_time(b) / per(y, *args)
+            if name == "fit":
+                fits.append((y, args))
+            return y
+        return run
+
+    pcm, _ = read_wav_mono(wav)
+    per_frame = lambda y, *a: len(a[0])   # noqa: E731
+    arrays = preprocess_subject(
+        frames, pcm, featmap_size=cfg.featmap_size, seed=seed, strict=True,
+        bisenet_apply=timed("bisenet", app["bisenet_apply"], per_frame),
+        fan_apply=timed("fan", app["fan_apply"], per_frame),
+        netg_apply=timed("netg", app["netg_apply"], per_frame),
+        fit3dmm_fn=timed("fit", app["fit3dmm_fn"], lambda y, *a: 30))
+    fit, fit_args = fits[0]
+    loss0 = app["fit3dmm_fn"](*fit_args, iters=(0, 0)).losses["total_loss"]
+    with np.load(out) as z:
+        cli_arrays = {k: z[k] for k in z.files}
+    cli_diff = {k: float(np.abs(cli_arrays[k] - v).max()) for k, v in arrays.items()}
+    checks = {"keys_missing": sorted(set(REQUIRED_KEYS) - set(cli_arrays)),
+              "all_finite": all(bool(np.isfinite(v).all()) for v in cli_arrays.values()),
+              "tvec_z": [float(v) for v in cli_arrays["Tvec"][:3, 2]],
+              "audio_exp_max": float(np.abs(cli_arrays["audio_exp"]).max()),
+              "fit_loss": [loss0, fit.losses["total_loss"]],
+              "head_mask_mean": float(cli_arrays["head_mask"].mean()),
+              "cli_max_abs": max(cli_diff.values()), "worst": max(cli_diff, key=cli_diff.get)}
+    stages = {k + ("_ms_per_iteration" if k == "fit" else "_ms_per_frame"): v
+              for k, v in stage_ms.items()}
+    log(f"preprocess {at()}: cli preprocess --strict of {PREP_FRAMES} frames {S}^2 in "
+        f"{cli_s:.1f} s (the networks' seeded init included); in process build_appliers "
+        f"{build_s:.1f} s, stages (CUDA events, host copies included) {json.dumps(stages)}; "
+        f"{json.dumps(checks)} (the CLI against the in-process run: tolerance "
+        f"{PREP_CLI_ATOL:.0e})")
+    if checks["keys_missing"] or not checks["all_finite"] \
+            or np.allclose(cli_arrays["Tvec"][:, 2], 12.0) or checks["audio_exp_max"] == 0 \
+            or not loss0 > fit.losses["total_loss"] or checks["cli_max_abs"] > PREP_CLI_ATOL \
+            or len(cli_arrays["images"]) != PREP_FRAMES:
+        raise AssertionError("preprocess: cli preprocess --strict")
+    del app
+
+    # 4. cli train --data on the subject: one K1 and one K2 a step
+    ckpt_dir, log_dir = os.path.join(workdir, "prep_ckpt"), os.path.join(workdir, "prep_logs")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    by_path = {"train_steps": [0, 0], "validation": [0, 0]}
+
+    def counted(method, path):
+        def run(self, *args, **kwargs):
+            before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
+            y = method(self, *args, **kwargs)
+            by_path[path][0] += fr.fused_render_fwd.launches - before[0]
+            by_path[path][1] += fr.fused_render_bwd.launches - before[1]
+            return y
+        return run
+
+    methods = (Trainer.train_one_epoch, Trainer.validate)
+    Trainer.train_one_epoch = counted(methods[0], "train_steps")
+    Trainer.validate = counted(methods[1], "validation")
+    fr.fused_render_fwd.launches = 0
+    fr.fused_render_bwd.launches = 0
+    t0 = time.perf_counter()
+    try:
+        train_rec = cli.main(["train", "--data", out, "--featmap-size", str(cfg.featmap_size),
+                              "--img-size", str(S), "--epochs", "1", "--batch-size", "2",
+                              "--seed", str(seed), "--device", DEVICE, "--ckpt-dir", ckpt_dir,
+                              "--log-dir", log_dir])
+        torch.cuda.synchronize()
+    finally:
+        Trainer.train_one_epoch, Trainer.validate = methods
+    train_s = time.perf_counter() - t0
+    (k1_train, k2_train), (k1_val, k2_val) = by_path["train_steps"], by_path["validation"]
+    losses = {k: train_rec[k] for k in ("bg_loss", "head_loss", "nonhead_loss", "vgg",
+                                        "total_loss")}
+    log(f"preprocess {at()}: cli train --data on the subject, 1 epoch in {train_s:.1f} s: "
+        f"launches in the train steps K1 {k1_train}, K2 {k2_train} (expected "
+        f"{PREP_TRAIN_STEPS} each), in validation K1 {k1_val}, K2 {k2_val} (expected 1, 0); "
+        f"{json.dumps(losses)}")
+    if (k1_train, k2_train, k1_val, k2_val) != (PREP_TRAIN_STEPS, PREP_TRAIN_STEPS, 1, 0) \
+            or not all(map(math.isfinite, losses.values())) or train_rec["finite_step"] != 1.0:
+        raise AssertionError("preprocess: cli train --data on the preprocessed subject")
+
+    # 5. the full-size rasterizer: render_nl3dmm's forward and backward, B=1
+    Gf = FULL_MESH_GRID
+    geo, tex = nl3dmm_on(Gf, seed, dev)
+    faces_f, lm_f = grid_mesh(Gf), torch.arange(68) % (Gf * Gf)
+    codes_f = nl3dmm_codes(1, seed + 2, tz=2.5)
+    gwf = torch.Generator().manual_seed(seed + 3)
+    weights_f = (torch.randn(1, S, S, 3, generator=gwf), torch.randn(1, 68, 2, generator=gwf))
+    run = lambda: nl3dmm_grads(geo, tex, codes_f, faces_f, lm_f, S, weights_f)  # noqa: E731
+    r_full, _ = run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full_ms = cuda_ms(run, reps=1, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    full = {"points": Gf * Gf, "faces": len(faces_f), "image": S, "batch": 1,
+            "ms_fwd_bwd": full_ms, "peak_bytes": peak, "peak_above_weights_bytes": peak - base,
+            "coverage": float(r_full.mask.mean())}
+    log(f"preprocess {at()}: full-size rasterizer (render_nl3dmm forward + backward to the "
+        f"codes and the camera; plain PyTorch, chunk 512): {json.dumps(full)}")
+    del geo, tex, r_full
+    phase_s = time.perf_counter() - t_phase
+    log(f"preprocess: phase {phase_s:.1f} s (limit {PREP_LIMIT_S:.0f} s)")
+    if phase_s > PREP_LIMIT_S:
+        raise AssertionError(f"preprocess: phase took {phase_s:.1f} s")
+    return {"nets": nets, "render_7x7": render, "cli_s": cli_s, "build_s": build_s,
+            "stage_ms": stage_ms, "checks": checks, "train_s": train_s,
+            "k1_train": k1_train, "k2_train": k2_train, "k1_validation": k1_val,
+            "full_rasterizer": full, "phase_s": phase_s}
+
+
 def _train_setup(seed: int, use_fused: bool = True):
     """Step functions, a fresh state and one batch at Reso64 (B=2, VGG with
     precomputed target planes), as the trainer builds them."""
@@ -3012,6 +3392,7 @@ def main() -> int:
     vq = phase_vq(args.seed, workdir, fit_ckpt)
     stage2 = phase_stage2(args.seed, workdir, vq.pop("ckpt"), vq.pop("train_frames"))
     coeff = phase_coeff(args.seed, workdir, fit_ckpt, fitted)
+    prep = phase_preprocess(args.seed, workdir)
     k5f, k5b = phase_upsampler_kernels(args.seed, build_info["ptxas"])
     ups_serving = phase_serving_upsampler(args.seed, FRAMES, workdir)
     ups_grad = phase_gradient_upsampler(args.seed)
@@ -3043,10 +3424,13 @@ def main() -> int:
                               "subject_animate": subject["k1_animate"],
                               "fit": fit["k1_fit"], "render": fit["k1_render"],
                               "fit_animate": fit["k1_animate"], "vq_renders": vq["k1_renders"],
-                              "coeff_animate": coeff["k1_animate"]}
+                              "coeff_animate": coeff["k1_animate"],
+                              "preprocessed_train_steps": prep["k1_train"],
+                              "preprocessed_validation": prep["k1_validation"]}
     k2["launches_by_path"] = {"train_steps": train["k2"],
                               "gradient_fused_upsampler": ups_grad["k2"],
-                              "subject_train_steps": subject["k2"], "fit": fit["k2_fit"]}
+                              "subject_train_steps": subject["k2"], "fit": fit["k2_fit"],
+                              "preprocessed_train_steps": prep["k2_train"]}
     # K2 at the fit's shape (B=1, input_grads=True): its launches on the fit
     # path all have input gradients
     bd = fit["breakdown"]
@@ -3066,7 +3450,7 @@ def main() -> int:
                     "training": {"steps": train["steps"], "ms_per_step": step["ms_per_step"],
                                  "rays_per_s": step["rays_per_s"], "parity": parity},
                     "subject": subject, "fit": fit, "vq": vq, "stage2": stage2,
-                    "coeff": coeff,
+                    "coeff": coeff, "preprocess": prep,
                     "mesh": {"epoch_2x2": mesh_train, "parity": mesh_parity, "nccl_1x1": nccl},
                     "build_s": build_info["build_s"], "nvcc": build_info["nvcc"]}))
     log(f"smoke: every phase in {time.perf_counter() - t_start:.1f} s")

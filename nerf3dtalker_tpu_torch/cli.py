@@ -31,6 +31,12 @@
   infer-coeff — wav (or --text through the placeholder TTS) -> mel chunks
             -> SadTalker's audio2exp netG (a --safetensors file, else zero
             expressions) -> exp [T, 64] and smoothed poses as .npz
+  preprocess — a subject's frames (a [T, H, W, 3] .npy in [0, 1]) and wav
+            -> the training arrays `train --data` reads (.npz): with
+            --strict BiSeNet head masks, FAN landmarks, the two-stage NL3DMM
+            fit through the mesh rasterizer and netG audio expressions
+            (seeded networks); without it placeholders for the network
+            stages
 
 Runs on `cuda` unless `--device cpu` is given. On the GPU HeadNeRF computes
 in bf16 through the fused render kernels; on the CPU in f32 through the
@@ -704,6 +710,38 @@ def cmd_infer_coeff(args) -> dict:
     return rec
 
 
+def cmd_preprocess(args) -> dict:
+    """Offline subject preprocessing (the reference's DataProcess/
+    Gen_mask_lm_3DMM.py flow; JAX `cli.py:cmd_preprocess`): frames .npy +
+    wav -> the subject's arrays as an .npz (np.savez); one JSON line. With
+    --strict every stage runs its network (`build_appliers` at the frames'
+    size, seeded from --seed, the fit at (10, 20) iterations)."""
+    import time
+
+    import numpy as np
+
+    from nerf3dtalker_tpu_torch.data.mel import read_wav_mono
+    from nerf3dtalker_tpu_torch.data.preprocess import build_appliers, preprocess_subject
+    from nerf3dtalker_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if not args.frames.endswith(".npy"):
+        raise SystemExit("--frames must be a [T,H,W,3] .npy stack")
+    frames = np.load(args.frames)
+    pcm, _ = read_wav_mono(args.wav)
+    t0 = time.perf_counter()
+    appliers = build_appliers(frames.shape[1], seed=args.seed, fit_iters=(10, 20),
+                              device=dev) if args.strict else {}
+    arrays = preprocess_subject(frames.astype(np.float32), pcm, featmap_size=args.featmap_size,
+                                seed=args.seed, strict=args.strict, **appliers)
+    path = args.out or "subject.npz"
+    np.savez(path, **arrays)
+    rec = {"out": path, "keys": sorted(arrays), "frames": len(arrays["images"]),
+           "strict": args.strict, "device": str(dev), "s": time.perf_counter() - t0}
+    print(json.dumps(rec))
+    return rec
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="nerf3dtalker_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -849,6 +887,19 @@ def main(argv=None):
     pi.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     pi.add_argument("--out", default="", help="default coeffs.npz")
     pi.set_defaults(fn=cmd_infer_coeff)
+
+    pp = sub.add_parser("preprocess", help="frames .npy + wav -> a subject .npz for train --data")
+    pp.add_argument("--frames", required=True, help="[T, H, W, 3] .npy, values in [0, 1]")
+    pp.add_argument("--wav", required=True)
+    pp.add_argument("--featmap-size", type=int, default=32, help="of the base camera's "
+                    "inv_inmat (and of the placeholder camera without --strict)")
+    pp.add_argument("--seed", type=int, default=0, help="seed of the networks and the blink "
+                    "ratios")
+    pp.add_argument("--strict", action="store_true",
+                    help="run the full network path; no placeholder arrays")
+    pp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pp.add_argument("--out", default="", help="default subject.npz")
+    pp.set_defaults(fn=cmd_preprocess)
 
     args = p.parse_args(argv)
     # the flags set on the command line, not left at their parser default

@@ -169,6 +169,35 @@ def simple_wrapper_v2_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     return sd
 
 
+def bn_net_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """Flax variables {params, batch_stats} of a conv net that keeps the flax
+    module names (the port's BiSeNet, FAN, ReconNet) -> its state_dict."""
+    sd = {}
+
+    def walk(params: Mapping, stats: Mapping, prefix: str) -> None:
+        for name, node in params.items():
+            if "scale" in node:                       # a BatchNorm
+                sd.update({f"{prefix}{name}.weight": _np(node["scale"]),
+                           f"{prefix}{name}.bias": _np(node["bias"]),
+                           f"{prefix}{name}.running_mean": _np(stats[name]["mean"]),
+                           f"{prefix}{name}.running_var": _np(stats[name]["var"]),
+                           f"{prefix}{name}.num_batches_tracked": np.zeros((), np.int64)})
+            elif "kernel" in node:                    # a Conv or a Dense
+                sd.update({f"{prefix}{name}.{k}": v for k, v in
+                           (_torch_leaf(n, x) for n, x in node.items())})
+            else:
+                walk(node, stats.get(name, {}), f"{prefix}{name}.")
+
+    walk(variables["params"], variables.get("batch_stats", {}), "")
+    return sd
+
+
+def nl3dmm_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
+    """NonLinear3DMM or Linear3DMMTexture flax params -> the port module's
+    state_dict."""
+    return _flat_state_dict(_inner(tree))
+
+
 def au_classifiers_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
     """The JAX step's stacked AUClassifier params ([n_au, ...] leaves) ->
     the state_dict of the port's ModuleList of n_au classifiers. linear0's

@@ -25,6 +25,15 @@ in:
     SimpleWrapperV2 keeps the reference's names and NCHW layout, so
     `audio_encoder.{i}.conv_block.{0,1}` (Conv2d, BatchNorm2d with its
     running statistics) and `mapping1` carry over as they are.
+  * BiSeNet face parsing (DataProcess/BiSeNet.py:227-256): the context
+    path `cp.*` flattens to the top level, a ResNet block's
+    `layer{l}.{b}` -> `layer{l}_{b}` and its `downsample.{0,1}` ->
+    `down_conv` / `down_bn`, an output head `conv_out{,16,32}.{conv,
+    conv_out}` -> `conv_out{,16,32}_{conv,out}`; the tensors as they are.
+  * Deep3DFaceRecon's ReconNetWrapper (s_face3d/models/networks.py:69-104):
+    the ResNet50 `backbone.*` renamed as BiSeNet's trunk; the seven 1x1
+    coefficient heads `final_layers.{0..6}` (id80 / exp64 / tex80 / angle3
+    / gamma27 / txy2 / tz1) stacked into the one Linear `final` [257, 2048].
 
 The other converters of the JAX module come with their models.
 """
@@ -32,6 +41,7 @@ The other converters of the JAX module come with their models.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -149,6 +159,58 @@ def convert_simple_wrapper_v2(sd: Mapping) -> Dict[str, np.ndarray]:
         out[f"{bn}.num_batches_tracked"] = np.asarray(
             _np(sd.get(f"{bn}.num_batches_tracked", 0)), np.int64).reshape(())
     out.update(_linear(sd, "mapping1", "mapping1"))
+    return out
+
+
+def _port_keys(factory):
+    """The state-dict keys of the port module `factory(device=...)` builds
+    (on the meta device: no storage, no init)."""
+    with torch.device("meta"):
+        return list(factory(device="meta").state_dict())
+
+
+def _renamed(sd: Mapping, keys, ref_key) -> Dict[str, np.ndarray]:
+    """{port key: sd[ref_key(port key)]}, f32; a BatchNorm's
+    `num_batches_tracked` as stored, else 0."""
+    out = {}
+    for k in keys:
+        ref = ref_key(k)
+        if k.endswith("num_batches_tracked"):
+            out[k] = np.asarray(_np(sd.get(ref, 0)), np.int64).reshape(())
+        else:
+            out[k] = _np(sd[ref]).astype(np.float32)
+    return out
+
+
+def _resnet_ref_key(k: str) -> str:
+    """A port ResNet trunk key -> torchvision's."""
+    k = re.sub(r"layer(\d)_(\d+)\.", r"layer\1.\2.", k)
+    return k.replace("down_conv", "downsample.0").replace("down_bn", "downsample.1")
+
+
+def _bisenet_ref_key(k: str) -> str:
+    head = re.match(r"(conv_out(?:16|32)?)_(conv|out)\.(.*)", k)
+    if head:
+        name, part, rest = head.groups()
+        return f"{name}.{'conv' if part == 'conv' else 'conv_out'}.{rest}"
+    return k if k.startswith("ffm.") else "cp." + _resnet_ref_key(k)
+
+
+def convert_bisenet(sd: Mapping) -> Dict[str, np.ndarray]:
+    """BiSeNet state dict -> the port BiSeNet's state dict."""
+    from nerf3dtalker_tpu_torch.models.bisenet import BiSeNet
+
+    return _renamed(sd, _port_keys(BiSeNet), _bisenet_ref_key)
+
+
+def convert_recon_net(sd: Mapping) -> Dict[str, np.ndarray]:
+    """ReconNetWrapper state dict -> the port ReconNet's state dict."""
+    from nerf3dtalker_tpu_torch.models.resnets import ReconNet
+
+    keys = [k for k in _port_keys(ReconNet) if k.startswith("backbone.")]
+    out = _renamed(sd, keys, _resnet_ref_key)
+    out["final.weight"] = np.concatenate([_weight(sd, f"final_layers.{i}") for i in range(7)])
+    out["final.bias"] = np.concatenate([_bias(sd, f"final_layers.{i}") for i in range(7)])
     return out
 
 

@@ -1,14 +1,15 @@
 """JAX reference models shared by the port's parity tests
 (`tests/test_torch_*.py`). Each is built once per process: flax's init of
-the 2x640 BiLSTM and of a full-width HeadNeRF takes seconds to compile on
-the CPU."""
+a full-width HeadNeRF takes seconds to compile on the CPU."""
 
 import functools
 import hashlib
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from nerf3dtalker_tpu.config import NeRFConfig
 from nerf3dtalker_tpu.models import HeadNeRF
@@ -54,10 +55,13 @@ class JittedApply:
 
 @functools.lru_cache(maxsize=None)
 def audio2style():
-    """(module, params, jitted apply) of Audio2Style, init key 1 (eager:
-    compiling the whole init with jit takes twice as long here)."""
+    """(module, params, jitted apply) of Audio2Style, its weights
+    `seeded_variables` of seed 1: numpy draws in the shapes of the flax
+    init, which traces without compiling (flax's own init of the 2x640
+    BiLSTM took 6-11 s a process: eagerly it compiles each op, and jitted
+    whole it compiles twice as long)."""
     mod = Audio2Style()
-    params = mod.init(jax.random.key(1), jnp.zeros((1, 80, 16)))
+    params = seeded_variables(mod.init, jnp.zeros((1, 80, 16)), seed=1)
     return mod, params, jax.jit(mod.apply)
 
 
@@ -157,6 +161,16 @@ def seeded_headnerf(seed=0, **cfg_kw):
 
     params = jax.tree_util.tree_map_with_path(fill, shapes)
     return mod, params, {"Rmat": cam.Rmat, "Tvec": cam.Tvec, "inv_inmat": cam.inv_inmat}
+
+
+# Under pytest-xdist the workers share the machine's cores. torch's
+# intra-op pool takes every core in each worker, and its threads then wait
+# on one another: under `-n 6` on 8 cores the port's suite took 657-670 s
+# with it and 158 s with one thread a worker. Every port test file imports
+# this module, so each worker takes its share once.
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 # XLA's backend optimizations off: for a reference run once, compiling
@@ -302,3 +316,112 @@ def fast_jit(fn):
         return compiled[key](*args)
 
     return call
+
+
+# one `fast_jit` of a flax module's apply per module class and attributes
+_APPLIES = {}
+
+
+def jit_apply(module, cls=None):
+    """`cls.apply` bound to `module` (by default its own class's, or the
+    class a `jitted_class` stands for) through `fast_jit`, shared by every
+    test of the process that applies a module of that class and those
+    attributes."""
+    cls = cls or getattr(type(module), "jitted_base", type(module))
+    key = repr(module)
+    if key not in _APPLIES:
+        _APPLIES[key] = fast_jit(functools.partial(cls.apply, module))
+    return _APPLIES[key]
+
+
+def jitted_class(cls):
+    """A subclass of the flax module `cls`, of the same name, whose `apply`
+    goes through `jit_apply`: patched over a JAX module's class, it
+    compiles code that builds the module itself and applies it eagerly."""
+    class Jitted(cls):
+        def apply(self, variables, *args):
+            return jit_apply(self, cls)(variables, *args)
+
+    Jitted.__name__ = Jitted.__qualname__ = cls.__name__
+    Jitted.jitted_base = cls
+    return Jitted
+
+
+@functools.lru_cache(maxsize=None)
+def face_net(name, n_stacks=1):
+    """(module, seeded variables, jitted apply) of the JAX BiSeNet, FAN of
+    `n_stacks` stacks or ReconNet: variables in the shapes of the flax init
+    (which do not depend on the image size), from seed 1, 2 + n_stacks or
+    3."""
+    from nerf3dtalker_tpu.models.bisenet import BiSeNet
+    from nerf3dtalker_tpu.models.fan import FAN
+    from nerf3dtalker_tpu.models.resnets import ReconNet
+
+    mod, side, seed = {"bisenet": (BiSeNet(), 64, 1),
+                       "fan": (FAN(n_stacks=n_stacks), 64, 2 + n_stacks),
+                       "recon": (ReconNet(), 32, 3)}[name]
+    variables = seeded_variables(mod.init, jnp.zeros((1, side, side, 3)), seed=seed)
+    return mod, variables, jit_apply(mod)
+
+
+@functools.lru_cache(maxsize=None)
+def netg_variables(seed=1):
+    """SimpleWrapperV2 variables: kernels N(0, 1/fan_in), BN running means
+    N(0, 0.1^2) and variances in [0.5, 1.5]."""
+    from nerf3dtalker_tpu.models.audio import SimpleWrapperV2
+
+    return seeded_variables(SimpleWrapperV2().init, np.zeros((1, 80, 16, 1), np.float32),
+                            np.zeros((1, 64), np.float32), np.zeros((1, 1), np.float32),
+                            seed=seed)
+
+
+class fast_fit3dmm:
+    """Within it, JAX's `fit_3dmm` compiles its two stages with
+    FAST_COMPILE and computes its final losses through one jitted render,
+    loss and rotation (eagerly each op compiles on its own, ~12 s)."""
+
+    NAMES = ("render_nl3dmm", "fitting_losses", "euler_to_rmat")
+
+    def __enter__(self):
+        import nerf3dtalker_tpu.train.fit3dmm as mod
+
+        self.mod, self.jit = mod, jax.jit
+        self.eager = {n: getattr(mod, n) for n in self.NAMES}
+        jit = self.jit
+
+        def fast(fn):
+            jitted = jit(fn)
+            return lambda *a: jitted.lower(*a).compile(compiler_options=FAST_COMPILE)(*a)
+
+        mod.jax.jit = fast
+        mod.render_nl3dmm = jit(self.eager["render_nl3dmm"], static_argnames=("H", "W", "chunk"))
+        mod.fitting_losses = jit(self.eager["fitting_losses"])
+        mod.euler_to_rmat = jit(self.eager["euler_to_rmat"])
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.jax.jit = self.jit
+        for n, fn in self.eager.items():
+            setattr(self.mod, n, fn)
+        return False
+
+
+@functools.lru_cache(maxsize=None)
+def nl3dmm_variables(G=7, seed=0):
+    """(geo, tex) JAX NL3DMM variables at the G x G mesh (numpy, `seed`):
+    geo_fc2 N(0, 1/179) with N(0, 0.05^2) biases (some units active at zero
+    codes), geo_fc3 N(0, 0.02^2 / 1024) with the frontal grid as bias,
+    b_tex N(0, 0.01^2), mu_tex in [0.3, 0.7], sig_tex in [0.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)   # noqa: E731
+    xs, ys = np.meshgrid(np.linspace(-0.5, 0.5, G), np.linspace(-0.5, 0.5, G))
+    grid = np.stack([xs, ys, np.zeros_like(xs)], -1).reshape(-1)
+    geo = {"params": {
+        "geo_fc2": {"kernel": f32(rng.standard_normal((179, 1024)) / np.sqrt(179)),
+                    "bias": f32(0.05 * rng.standard_normal(1024))},
+        "geo_fc3": {"kernel": f32(0.02 * rng.standard_normal((1024, 3 * G * G)) / 32),
+                    "bias": f32(grid)}}}
+    tex = {"params": {"b_tex": f32(0.01 * rng.standard_normal((100, 3 * G * G))),
+                      "mu_tex": f32(rng.uniform(0.3, 0.7, 3 * G * G)),
+                      "sig_tex": f32(rng.uniform(0.5, 1.5, 100))}}
+    return geo, tex

@@ -18,6 +18,7 @@ import wave
 import numpy as np
 import pytest
 import torch
+import _jax_reference  # noqa: F401  (each xdist worker's share of torch threads)
 
 from nerf3dtalker_tpu_torch import cli
 from nerf3dtalker_tpu_torch.config import NeRFConfig, TrainConfig

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from test_convert import _torch_mlp, _torch_mlp_forward, _TorchAudio2Style
 from torch import nn
+import _jax_reference  # noqa: F401  (each xdist worker's share of torch threads)
 
 from nerf3dtalker_tpu.utils import convert as jconvert
 from nerf3dtalker_tpu_torch.config import NeRFConfig

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _jax_reference  # noqa: F401  (each xdist worker's share of torch threads)
 
 from nerf3dtalker_tpu.models.nerf_mlp import NeRFMLP as JNeRFMLP
 from nerf3dtalker_tpu.ops.pallas import fused_render as jfr

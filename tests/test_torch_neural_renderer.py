@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+import _jax_reference  # noqa: F401  (each xdist worker's share of torch threads)
 
 from nerf3dtalker_tpu.models import neural_renderer as jnr
 from nerf3dtalker_tpu_torch.models import neural_renderer as nr

@@ -6,6 +6,7 @@ sin/cos implementations differ)."""
 import jax.numpy as jnp
 import numpy as np
 import torch
+import _jax_reference  # noqa: F401  (each xdist worker's share of torch threads)
 
 from nerf3dtalker_tpu.ops import compositing as jcomp
 from nerf3dtalker_tpu.ops import embedding as jemb

@@ -7,6 +7,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+import _jax_reference  # noqa: F401  (each xdist worker's share of torch threads)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nerf3dtalker_tpu", "transformers",
@@ -62,6 +63,19 @@ def test_import_rule_covers_stage2_and_the_sadtalker_path():
                                "models/audio.py", "models/audio2coeff.py",
                                "models/audio2pose.py", "data/ingest.py", "data/tts.py",
                                "train/audio2exp_trainer.py", "train/disexp_trainer.py")} <= names
+
+
+def test_import_rule_covers_the_preprocessing_path():
+    """The rule above reaches the face3d modules, the preprocessing networks,
+    the 3DMM fit, the preprocessing orchestrator and the crop-and-extract
+    path."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    port = "nerf3dtalker_tpu_torch/"
+    assert {port + f for f in ("models/face3d/__init__.py", "models/face3d/rasterizer.py",
+                               "models/face3d/nl3dmm.py", "models/face3d/bfm.py",
+                               "models/bisenet.py", "models/fan.py", "models/resnets.py",
+                               "train/fit3dmm.py", "data/preprocess.py", "data/align.py",
+                               "data/crop_extract.py")} <= names
 
 
 def test_kernel_source_is_in_the_package():
@@ -152,6 +166,31 @@ def test_entry_points_without_cuda_raise(no_cuda, tmp_path):
     assert not list(tmp_path.glob("fitted.npz")) and not list(tmp_path.glob("views.npy"))
     assert not list(tmp_path.glob("vq_ckpt")) and not list(tmp_path.glob("gen+"))
     assert not list(tmp_path.glob("s2.npy")) and not list(tmp_path.glob("c.npz"))
+
+
+def test_preprocessing_without_cuda_raises(no_cuda, tmp_path):
+    """`cli preprocess` (strict or not), `build_appliers` and the networks
+    default to the card and refuse to fall back to the CPU."""
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.data.preprocess import build_appliers
+    from nerf3dtalker_tpu_torch.models.bisenet import BiSeNet
+    from nerf3dtalker_tpu_torch.models.face3d.bfm import synthetic_bfm
+    from nerf3dtalker_tpu_torch.models.face3d.nl3dmm import Linear3DMMTexture, NonLinear3DMM
+    from nerf3dtalker_tpu_torch.models.fan import FAN
+    from nerf3dtalker_tpu_torch.models.resnets import ReconNet
+
+    frames = tmp_path / "frames.npy"
+    np.save(frames, np.zeros((2, 16, 16, 3), np.float32))
+    for strict in ([], ["--strict"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["preprocess", "--frames", str(frames), "--wav", "unread.wav",
+                      "--out", str(tmp_path / "subject.npz"), *strict])
+    for make in (BiSeNet, FAN, ReconNet, lambda: NonLinear3DMM(point_num=4),
+                 lambda: Linear3DMMTexture(point_num=4), synthetic_bfm,
+                 lambda: build_appliers(16)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert not list(tmp_path.glob("subject.npz"))
 
 
 def test_cpu_tensor_runs_plain_version_cuda_request_raises(no_cuda):

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _jax_reference  # noqa: F401  (each xdist worker's share of torch threads)
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
