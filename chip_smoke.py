@@ -30,6 +30,24 @@ Phases (any failure exits non-zero):
                 against the plain (kernel-free, autograd) path; time the
                 steady-state step (ms/step, rays/s) and its parts, and
                 profile 3 steps (device time by kernel, idle share);
+                The trainer's steps replay one CUDA graph of the step
+                (`Trainer.train_epoch_group`): each replay counts one K1
+                and one K2, and the two warm-up steps before the capture
+                are counted apart (here and in 4b and 4g);
+  4a. epoch_program — whole epochs as replays of that graph at Reso64 (16
+                `coherent_subject` frames, B=2, VGG on, seeded weights): a
+                graph epoch against an eager epoch from the same state and
+                seeds (per-epoch losses, every leaf's change) and the
+                graph's generator draws against eager ones; one K1 and one
+                K2 a replayed step by the counters and by torch.profiler;
+                ms/step and the device's idle share both ways, the
+                capture's seconds and its pool's bytes; a rollback mid-run
+                (the state restored in place, the next group against an
+                eager epoch from the checkpoint); a native-prefetch epoch
+                with the device cache off (each batch equal to the host
+                loader's); `cli train --trace-dir --trace-steps 3` (K1 and
+                K2 in the trace) and `--tensorboard` (an event file, or the
+                clear error without the package);
   4b. subject — train the learnable `coherent_subject` at Reso64 (40 train,
                 8 val, 8 train-eval frames, B=2, VGG on, lr 2e-4, rollback
                 guard) for 10 epochs with validation every 5, through K1/K2:
@@ -266,6 +284,43 @@ def cuda_ms_per_call(fn, calls: int = 200, reps: int = 5) -> float:
     calls of fn(), divided by `calls`: for launches shorter than a launch's
     own overhead."""
     return cuda_ms(lambda: [fn() for _ in range(calls)], reps=reps) / calls
+
+
+@contextlib.contextmanager
+def trainers_built():
+    """The Trainers built inside the block (a `cli train` call's), each
+    with its own launch counts (`Trainer.kernel_launches`: the train steps,
+    the steps before its CUDA graph's capture, validation)."""
+    from nerf3dtalker_tpu_torch.train.trainer import Trainer
+
+    made, init = [], Trainer.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    Trainer.__init__ = record
+    try:
+        yield made
+    finally:
+        Trainer.__init__ = init
+
+
+def trainer_launches(trainers, captures: int = 1):
+    """[K1, K2] by path over `trainers`, and whether each trainer captured
+    `captures` CUDA graphs of one K1 and one K2 each."""
+    from nerf3dtalker_tpu_torch.train.trainer import GRAPH_WARMUP_STEPS
+
+    by_path = {"train_steps": [0, 0], "graph_warmup": [0, 0], "validation": [0, 0]}
+    graphs_ok = True
+    for t in trainers:
+        for path, counts in t.kernel_launches.items():
+            by_path[path] = [a + b for a, b in zip(by_path[path], counts)]
+        graphs_ok &= len(t.graph_records) == captures and all(
+            g["launches"] == {"fused_render_fwd": 1, "fused_render_bwd": 1, "input_grads": 0}
+            for g in t.graph_records)
+        graphs_ok &= t.kernel_launches["graph_warmup"] == [GRAPH_WARMUP_STEPS * captures] * 2
+    return by_path, graphs_ok
 
 
 def phase_build():
@@ -659,57 +714,45 @@ def phase_training(seed: int, workdir: str):
             str(cfg.pred_img_size), "--batch-size", "2", "--device", DEVICE,
             "--epochs", str(TRAIN_EPOCHS), "--seed", str(seed), "--ckpt-dir", ckpt_dir,
             "--log-dir", log_dir]
-    # (K1, K2) launches inside the trainer's epochs and validations: the
-    # wrappers only read the counts, they launch nothing themselves
-    by_path = {"train_steps": [0, 0], "validation": [0, 0]}
-
-    def counted(method, path):
-        def run(self, *args, **kwargs):
-            before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
-            out = method(self, *args, **kwargs)
-            by_path[path][0] += fr.fused_render_fwd.launches - before[0]
-            by_path[path][1] += fr.fused_render_bwd.launches - before[1]
-            return out
-        return run
-
-    methods = (Trainer.train_one_epoch, Trainer.validate)
-    Trainer.train_one_epoch = counted(methods[0], "train_steps")
-    Trainer.validate = counted(methods[1], "validation")
+    # (K1, K2) launches of the trainer the call builds: its train steps (one
+    # CUDA graph, each replay counted), the steps before the capture, and
+    # its validations
     fr.fused_render_fwd.launches = 0
     fr.fused_render_bwd.launches = 0
-    try:
+    with trainers_built() as trainers:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        Trainer.train_one_epoch, Trainer.validate = methods
     k1, k2 = fr.fused_render_fwd.launches, fr.fused_render_bwd.launches
+    by_path, graphs_ok = trainer_launches(trainers)
     (k1_train, k2_train), (k1_val, k2_val) = by_path["train_steps"], by_path["validation"]
+    k1_warm, k2_warm = by_path["graph_warmup"]
     steps = TRAIN_EPOCHS * (TRAIN_FRAMES // 2)
     val_renders = TRAIN_EPOCHS * VAL_FRAMES
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     log(f"training: cli train {TRAIN_EPOCHS} epochs, {steps} steps in {wall:.1f} s (whole cli "
-        f"call: data, VGG planes, model build, steps, validation, checkpoints); launches in "
-        f"the train steps K1 {k1_train}, K2 {k2_train} (expected {steps} each); in validation "
-        f"K1 {k1_val}, K2 {k2_val} (expected {val_renders}, 0); in the whole call K1 {k1}, "
-        f"K2 {k2}")
-    for r in records:
-        log("training epoch " + json.dumps({k: r[k] for k in (
-            "epoch", "total_loss", "vgg", "finite_step", "sec_per_step", "rays_per_s",
+        f"call: data, VGG planes, model build, the step's CUDA graph, steps, validation, "
+        f"checkpoints); launches in the train steps K1 {k1_train}, K2 {k2_train} (expected "
+        f"{steps} each, replays of the graph), before its capture K1 {k1_warm}, K2 {k2_warm}, "
+        f"in validation K1 {k1_val}, K2 {k2_val} (expected {val_renders}, 0); in the whole "
+        f"call K1 {k1}, K2 {k2}; graph {json.dumps(trainers[0].graph_records)}")
+    for e, r in enumerate(records):
+        log(f"training epoch {e} " + json.dumps({k: r[k] for k in (
+            "step", "total_loss", "vgg", "finite_step", "sec_per_step", "rays_per_s",
             "SSIM", "PSNR")}))
-    if (k1_train, k2_train, k1_val, k2_val) != (steps, steps, val_renders, 0) \
-            or (k1, k2) != (k1_train + k1_val, k2_train + k2_val):
-        raise AssertionError(f"training launches: train steps K1 {k1_train} K2 {k2_train}, "
-                             f"validation K1 {k1_val} K2 {k2_val}, whole call K1 {k1} K2 {k2}")
+    if (k1_train, k2_train, k1_val, k2_val) != (steps, steps, val_renders, 0) or not graphs_ok \
+            or (k1, k2) != (k1_train + k1_val + k1_warm, k2_train + k2_val + k2_warm):
+        raise AssertionError(f"training launches: {by_path}, whole call K1 {k1} K2 {k2}, "
+                             f"graphs {trainers[0].graph_records}")
     if len(records) != TRAIN_EPOCHS:
         raise AssertionError(f"{len(records)} epoch records, expected {TRAIN_EPOCHS}")
-    for r in records:
+    for e, r in enumerate(records):
         losses = [r[k] for k in ("bg_loss", "head_loss", "nonhead_loss", "vgg", "total_loss")]
         if not all(map(math.isfinite, losses)) or r["finite_step"] != 1.0:
-            raise AssertionError(f"training epoch {r['epoch']}: {r}")
+            raise AssertionError(f"training epoch {e}: {r}")
     # every trainable leaf of both groups moved from its seeded init
     fns = build_step_fns(cfg, TrainConfig(seed=seed), device=DEVICE)
     init = fns.init(seed)
@@ -723,7 +766,8 @@ def phase_training(seed: int, workdir: str):
     log(f"training: {n_leaves - len(still)} of {n_leaves} trainable leaves moved")
     if still:
         raise AssertionError(f"parameters that did not move: {still}")
-    return {"k1_train": k1_train, "k1_validation": k1_val, "k2": k2_train, "steps": steps}
+    return {"k1_train": k1_train, "k1_validation": k1_val, "k2": k2_train, "steps": steps,
+            "k1_warmup": k1_warm, "k2_warmup": k2_warm, "graph": trainers[0].graph_records}
 
 
 def phase_subject(seed: int, workdir: str):
@@ -763,15 +807,16 @@ def phase_subject(seed: int, workdir: str):
 
     fr.fused_render_fwd.launches = 0
     fr.fused_render_bwd.launches = 0
-    t.kernel_launches = {"train_steps": [0, 0], "validation": [0, 0]}
+    t.kernel_launches = {path: [0, 0] for path in t.kernel_launches}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hist = t.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     k1, k2 = fr.fused_render_fwd.launches, fr.fused_render_bwd.launches
-    (k1_train, k2_train), (k1_val, k2_val) = (t.kernel_launches["train_steps"],
-                                              t.kernel_launches["validation"])
+    by_path, graphs_ok = trainer_launches([t])
+    (k1_train, k2_train), (k1_val, k2_val) = by_path["train_steps"], by_path["validation"]
+    k1_warm, k2_warm = by_path["graph_warmup"]
     steps = SUBJECT_EPOCHS * (SUBJECT_FRAMES // 2)
     validated = [h for h in hist if "TRAIN_PSNR" in h]
     val_renders = 2 * SUBJECT_VAL_FRAMES * len(validated)
@@ -784,7 +829,9 @@ def phase_subject(seed: int, workdir: str):
         f"(TRAIN_SSIM {final.get('TRAIN_SSIM', nan):.4f}), val PSNR "
         + ", ".join(f"epoch {h['epoch']} {h['PSNR']:.3f}" for h in validated)
         + f"; launches in the train steps K1 {k1_train}, K2 {k2_train} (expected {steps} "
-        f"each), in validation K1 {k1_val}, K2 {k2_val} (expected {val_renders}, 0)")
+        f"each, replays of the step's CUDA graph), before its capture K1 {k1_warm}, K2 "
+        f"{k2_warm}, in validation K1 {k1_val}, K2 {k2_val} (expected {val_renders}, 0); graph "
+        f"{json.dumps(t.graph_records)}")
     for h in hist:
         losses = [h[k] for k in ("bg_loss", "head_loss", "nonhead_loss", "vgg", "total_loss")]
         if not all(map(math.isfinite, losses)):
@@ -796,10 +843,10 @@ def phase_subject(seed: int, workdir: str):
     if not gain >= SUBJECT_GAIN_DB:
         raise AssertionError(f"subject: TRAIN_PSNR gained {gain:.3f} dB over the untrained "
                              f"model, expected >= {SUBJECT_GAIN_DB}")
-    if (k1_train, k2_train, k1_val, k2_val) != (steps, steps, val_renders, 0) \
-            or (k1, k2) != (k1_train + k1_val, k2_train + k2_val):
-        raise AssertionError(f"subject launches: train steps K1 {k1_train} K2 {k2_train}, "
-                             f"validation K1 {k1_val} K2 {k2_val}, whole run K1 {k1} K2 {k2}")
+    if (k1_train, k2_train, k1_val, k2_val) != (steps, steps, val_renders, 0) or not graphs_ok \
+            or (k1, k2) != (k1_train + k1_val + k1_warm, k2_train + k2_val + k2_warm):
+        raise AssertionError(f"subject launches: {by_path}, whole run K1 {k1} K2 {k2}, "
+                             f"graphs {t.graph_records}")
 
     # the NeRF's opacity, recorded: at TrainConfig seed 0 it goes transparent
     opacity = nerf_opacity(t.state.nerf.eval())
@@ -857,7 +904,363 @@ def phase_subject(seed: int, workdir: str):
             "train_ssim": final["TRAIN_SSIM"], "val_psnr": [h["PSNR"] for h in validated],
             "opacity_untrained": opacity_untrained, "opacity": opacity,
             "mp4": written, "k1_train": k1_train, "k2": k2_train, "k1_validation": k1_val,
+            "k1_warmup": k1_warm, "k2_warmup": k2_warm, "graph": t.graph_records,
             "k1_animate": k1_serve}
+
+
+# the epoch_program phase: coherent_subject at Reso64, B=2, VGG on: 8 steps
+# an epoch; a replayed step against an eager one from the same state and
+# seed within the train step's limits (STEP_LOSS_RTOL on the losses,
+# STEP_GRAD_REL_L2 relative L2 on every gradient leaf), and a replayed epoch
+# against an eager one within STEP_LOSS_RTOL on its losses
+EPOCH_FRAMES = 16
+EPOCH_TRACE_STEPS = 3
+
+
+def profiled_group(t, epoch: int):
+    """(the group's record, {kernel: launches}, device ms, wall ms) of one
+    epoch of `t` under torch.profiler, device activity only."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    with padded_profile([ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rec = t.train_epoch_group(epoch, 1)[0]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches, busy = {}, 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            busy += us / 1e3
+            launches[e.key] = launches.get(e.key, 0) + e.count
+    return rec, launches, busy, wall_ms
+
+
+def named(launches, part: str) -> int:
+    return sum(n for k, n in launches.items() if part in k)
+
+
+def state_leaves(t):
+    """{leaf: (its value, Adam's first moment of it)} of a trainer's state;
+    the moment is 0 before the first step."""
+    import torch
+
+    out = {}
+    for g, m in (("nerf", t.state.nerf), ("audio", t.state.audio)):
+        for n, p in m.named_parameters():
+            if p.requires_grad:
+                st = t.state.opt.state.get(p, {})
+                out[f"{g}.{n}"] = (p.detach().clone(),
+                                   st["exp_avg"].clone() if "exp_avg" in st
+                                   else torch.zeros_like(p))
+    return out
+
+
+def epoch_errors(rec_a, rec_b, before, after_a, after_b):
+    """Two epochs from one state: the largest relative difference of their
+    losses, and by leaf the relative L2 difference of their changes and of
+    Adam's first moments after them (a decayed sum of the epoch's
+    gradients)."""
+    keys = [k for k in rec_a if k.endswith("loss") or k == "vgg"]
+    loss = max(abs(rec_a[k] - rec_b[k]) / max(abs(rec_b[k]), 1e-12) for k in keys)
+    change = {k: rel_l2(after_a[k][0] - v, after_b[k][0] - v) for k, (v, _) in before.items()}
+    moment = {k: rel_l2(after_a[k][1], after_b[k][1]) for k in before}
+    return loss, change, moment
+
+
+def worst(errs):
+    k = max(errs, key=errs.get)
+    return [k, errs[k]]
+
+
+def graph_draws_match(shapes, seeds) -> bool:
+    """Whether a CUDA graph's uniform draws of `shapes` from a generator
+    registered with it equal eager draws, bit for bit, at each seed."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    g = torch.cuda.CUDAGraph()
+    g.register_generator_state(gen)
+    with torch.cuda.graph(g):
+        drawn = [torch.rand(sh, generator=gen, device=DEVICE) for sh in shapes]
+    equal = True
+    for s in seeds:
+        gen.manual_seed(s)
+        g.replay()
+        gen.manual_seed(s)
+        equal &= all(torch.equal(d, torch.rand(sh, generator=gen, device=DEVICE))
+                     for d, sh in zip(drawn, shapes))
+    return equal
+
+
+def phase_epoch_program(seed: int, workdir: str):
+    """Whole epochs as replays of one CUDA graph of the train step
+    (`Trainer.train_epoch_group`) at full width: (a) a graph epoch against an
+    eager epoch from the same state and seeds, and the graph's generator
+    draws against eager draws; (b) one K1 and one K2 a replayed step, by the
+    counters and by torch.profiler; (c) ms/step and the device's idle share
+    both ways, the capture's seconds and its pool's bytes; (d) a rollback
+    mid-run, after which the next group trains from the checkpoint's state;
+    (e) a --native-prefetch epoch with the device cache off; (f) `cli train
+    --trace-dir --trace-steps 3` and K1 / K2 in its trace; (g) --tensorboard."""
+    import copy
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from nerf3dtalker_tpu_torch import cli
+    from nerf3dtalker_tpu_torch.config import TrainConfig
+    from nerf3dtalker_tpu_torch.data.dataset import coherent_subject, to_tensors
+    from nerf3dtalker_tpu_torch.ops.kernels import fused_render as fr
+    from nerf3dtalker_tpu_torch.train.trainer import (GRAPH_WARMUP_STEPS, Trainer, epoch_order,
+                                                      step_seed)
+    from nerf3dtalker_tpu_torch.utils import observability as obs
+
+    t_phase = time.perf_counter()
+    ckpt_dir = os.path.join(workdir, "epoch_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = train_config()
+    steps = EPOCH_FRAMES // 2
+    train = coherent_subject(cfg, EPOCH_FRAMES)
+    val = coherent_subject(cfg, 2, t0=EPOCH_FRAMES)
+    tc = TrainConfig(batch_size=2, epochs=8, lr=2e-4, seed=seed, ckpt_dir=ckpt_dir, log_dir="",
+                     guard_policy="rollback", val_every=2)
+    fr.fused_render_fwd.launches = 0
+    fr.fused_render_bwd.launches = 0
+    t = Trainer(cfg, tc, train, val, device=DEVICE)
+    t.init()
+    out = {"steps_per_epoch": steps}
+
+    # (a) the generator: a graph's draws after manual_seed(s) are an eager
+    # step's (the jitter's shape and the dropout's)
+    rng_equal = graph_draws_match([(2, cfg.n_rays, cfg.num_sample_coarse + 1), (2, 1280)],
+                                  [step_seed(seed, 0, 0), step_seed(seed, 3, 5)])
+
+    # (a) from one state and seed: a step eagerly, eagerly again and as a
+    # replay of the graph (its capture comes first), every gradient leaf
+    # held as Adam's first moment after one step (0.1 of the gradient);
+    # then epoch 0 the same three ways, its losses held. Eager runs differ
+    # where the decoder's and the LSTM's backwards sum by atomics; over an
+    # epoch Adam carries that into the leaves (eager_vs_eager shows how far)
+    snap = {"nerf": {k: v.clone() for k, v in t.state.nerf.state_dict().items()},
+            "audio": {k: v.clone() for k, v in t.state.audio.state_dict().items()},
+            "opt": copy.deepcopy(t.state.opt.state_dict()), "step": t.state.step}
+    before = state_leaves(t)
+    idx = torch.as_tensor(epoch_order(EPOCH_FRAMES, seed, 0)[:2], device=DEVICE)
+    counts = {k: list(v) for k, v in t.kernel_launches.items()}
+
+    def one_step(use_graph):
+        """Epoch 0's first step, counted as the trainer counts its steps."""
+        t._load(snap)
+        graph = t._step_graph() if use_graph else None
+        before_step = t._launch_counts()
+        if graph is not None:
+            graph.step(idx, step_seed(seed, 0, 0))
+            acc = torch.zeros(len(graph.keys), device=DEVICE)
+            graph.take(acc)
+            losses = dict(zip(graph.keys, acc.tolist()))
+        else:
+            t.generator.manual_seed(step_seed(seed, 0, 0))
+            losses = {k: float(v) for k, v in t.fns.train_step(
+                t.state, t.train_data.device_batch(idx), t.generator).items()}
+        t._count_launches("train_steps", before_step)
+        return losses, state_leaves(t)
+
+    def one_epoch(use_graph):
+        t._load(snap)
+        t.use_graph = use_graph
+        return t.train_epoch_group(0, 1)[0], state_leaves(t)
+
+    out["graph_vs_eager"] = {"generator_draws_equal": rng_equal}
+    for what, run in (("step", one_step), ("epoch", one_epoch)):
+        (ra, la), (rb, lb), (rg, lg) = run(False), run(False), run(True)
+        loss, change, moment = epoch_errors(rg, ra, before, lg, la)
+        b_loss, b_change, b_moment = epoch_errors(rb, ra, before, lb, la)
+        out["graph_vs_eager"][what] = {
+            "loss_rel": loss, "first_moment_rel_l2_max": worst(moment),
+            "leaf_change_rel_l2_max": worst(change), "total_loss": [rg["total_loss"],
+                                                                   ra["total_loss"]],
+            "eager_vs_eager": {"loss_rel": b_loss, "first_moment_rel_l2_max": worst(b_moment),
+                               "leaf_change_rel_l2_max": worst(b_change)}}
+        if loss > STEP_LOSS_RTOL or (what == "step" and worst(moment)[1] > STEP_GRAD_REL_L2):
+            raise AssertionError(f"epoch_program: the graph's {what} against the eager one "
+                                 f"{out['graph_vs_eager']}")
+    log("epoch_program (a) " + json.dumps(out["graph_vs_eager"]))
+    counts_a = {k: [a - b for a, b in zip(v, counts[k])] for k, v in t.kernel_launches.items()}
+    if not rng_equal or counts_a["train_steps"] != [3 + 3 * steps] * 2 \
+            or counts_a["graph_warmup"] != [GRAPH_WARMUP_STEPS] * 2:
+        raise AssertionError(f"epoch_program: generator draws equal {rng_equal}, launches "
+                             f"{counts_a}")
+    del before, snap
+
+    # (b), (c) replayed and eager epochs, timed, then each under torch.profiler
+    t.use_graph = True
+    k_before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
+    ms_graph = t.train_epoch_group(1, 1)[0]["sec_per_step"] * 1e3
+    _, prof_g, busy_g, wall_g = profiled_group(t, 2)
+    k_graph = (fr.fused_render_fwd.launches - k_before[0],
+               fr.fused_render_bwd.launches - k_before[1])
+    t.use_graph = False
+    ms_eager = t.train_epoch_group(3, 1)[0]["sec_per_step"] * 1e3
+    _, prof_e, busy_e, wall_e = profiled_group(t, 4)
+    t.use_graph = True
+    graph = t.graph_records[0]
+    out["graph"] = {"ms_per_step": ms_graph, "device_ms_per_step": busy_g / steps,
+                    "wall_ms_per_step_profiled": wall_g / steps,
+                    "idle_share": max(0.0, 1.0 - busy_g / wall_g),
+                    "profiler_k1": named(prof_g, "fused_render_fwd_kernel"),
+                    "profiler_k2": named(prof_g, "ray_kernel"),
+                    "counter_k1_k2": list(k_graph), "capture_s": graph["capture_s"],
+                    "warmup_s": graph["warmup_s"], "pool_bytes": graph["pool_bytes"]}
+    out["eager"] = {"ms_per_step": ms_eager, "device_ms_per_step": busy_e / steps,
+                    "wall_ms_per_step_profiled": wall_e / steps,
+                    "idle_share": max(0.0, 1.0 - busy_e / wall_e),
+                    "profiler_k1": named(prof_e, "fused_render_fwd_kernel"),
+                    "profiler_k2": named(prof_e, "ray_kernel")}
+    log("epoch_program (b, c) " + json.dumps({"graph": out["graph"], "eager": out["eager"]}))
+    if k_graph != (2 * steps, 2 * steps) or (out["graph"]["profiler_k1"],
+                                             out["graph"]["profiler_k2"]) != (steps, steps):
+        raise AssertionError(f"epoch_program: a replayed step's launches {out['graph']}")
+
+    # (d) a rollback mid-run: epochs 5 (validated, saved), 6 reported
+    # non-finite -> back to epoch 5's checkpoint, then 7 from that state
+    t.start_epoch = 5
+    clean, resume = t.train_epoch_group, t.resume
+    params = [p for group in t.state.opt.param_groups for p in group["params"]]
+    opt_ptrs = [v.data_ptr() for p in params for v in t.state.opt.state[p].values()]
+    restored = {}
+
+    def flagged(e0, n):
+        return [{**m, **({"finite_step": 0.0} if e0 + j == 6 else {})}
+                for j, m in enumerate(clean(e0, n))]
+
+    def resume_and_look(path):
+        step = resume(path)
+        payload = torch.load(os.path.join(path, f"ckpt_{step:08d}.pt"), map_location=DEVICE,
+                             weights_only=True)
+        restored["step"] = step
+        restored["params_equal"] = all(
+            torch.equal(v, payload[g][k]) for g, m in (("nerf", t.state.nerf),
+                                                       ("audio", t.state.audio))
+            for k, v in m.state_dict().items())
+        saved = payload["opt"]["state"]     # by the index of the param in the groups
+        live = [t.state.opt.state[p] for p in params]
+        restored["adam_equal"] = all(torch.equal(st[k], saved[i][k]) for i, st in enumerate(live)
+                                     for k in st)
+        restored["same_tensors"] = opt_ptrs == [v.data_ptr() for st in live for v in st.values()]
+        restored["leaves"] = state_leaves(t)
+        return step
+
+    t.train_epoch_group, t.resume = flagged, resume_and_look
+    try:
+        hist = t.train(epochs=8)
+    finally:
+        t.train_epoch_group, t.resume = clean, resume
+    after_graph = state_leaves(t)
+    rec7 = hist[-1]
+    payload = torch.load(os.path.join(ckpt_dir, f"ckpt_{restored['step']:08d}.pt"),
+                         map_location=DEVICE, weights_only=True)
+    t._load(payload)
+    t.use_graph = False
+    rec7_eager = t.train_epoch_group(7, 1)[0]
+    loss_err, change, moment = epoch_errors(rec7, rec7_eager, restored["leaves"], after_graph,
+                                            state_leaves(t))
+    out["rollback"] = {"epochs": [[h["epoch"], "rollback" in h, "PSNR" in h] for h in hist],
+                       "restored_step": restored["step"], "params_equal": restored["params_equal"],
+                       "adam_equal": restored["adam_equal"],
+                       "graph_tensors_kept": restored["same_tensors"],
+                       "next_epoch_vs_eager_loss_rel": loss_err,
+                       "next_epoch_leaf_change_rel_l2_max": worst(change),
+                       "next_epoch_first_moment_rel_l2_max": worst(moment)}
+    log("epoch_program (d) " + json.dumps(out["rollback"]))
+    if out["rollback"]["epochs"] != [[5, False, True], [6, True, False], [7, False, True]] \
+            or restored["step"] != 6 * steps or not restored["params_equal"] \
+            or not restored["adam_equal"] or not restored["same_tensors"] \
+            or loss_err > STEP_LOSS_RTOL or worst(moment)[1] > STEP_GRAD_REL_L2:
+        raise AssertionError(f"epoch_program: rollback {out['rollback']}")
+    t_launches = {k: list(v) for k, v in t.kernel_launches.items()}
+    t.close()
+    del t, restored, after_graph
+
+    # (e) one --native-prefetch epoch, the device cache off
+    t2 = Trainer(cfg, dataclasses.replace(tc, native_prefetch=True, device_cache=False,
+                                          ckpt_dir=""), train, device=DEVICE)
+    t2.init()
+    nxt, equal = t2._prefetcher.next, []
+
+    def checked():
+        b = nxt()
+        host = to_tensors(train.batch(t2._prefetcher.last_indices), DEVICE)
+        equal.append(set(b) == set(host) and all(torch.equal(b[k], host[k]) for k in host))
+        return b
+
+    t2._prefetcher.next = checked
+    rec = t2.train_one_epoch(0)
+    out["native_prefetch"] = {"batches": len(equal), "equal_to_host_loader": all(equal),
+                              "launches": t2.kernel_launches, "ms_per_step":
+                              rec["sec_per_step"] * 1e3, "total_loss": rec["total_loss"]}
+    log("epoch_program (e) " + json.dumps(out["native_prefetch"]))
+    if len(equal) != steps or not all(equal) or t2.kernel_launches["train_steps"] != [steps] * 2 \
+            or t2.kernel_launches["graph_warmup"] != [0, 0] or not math.isfinite(rec["total_loss"]):
+        raise AssertionError(f"epoch_program: native prefetch {out['native_prefetch']}")
+    t2_launches = t2.kernel_launches
+    t2.close()
+    del t2
+
+    # (f) cli train --trace-dir --trace-steps 3 (and (g) --tensorboard with it
+    # where the package is installed)
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    trace_dir = os.path.join(workdir, "epoch_trace")
+    log_dir = os.path.join(workdir, "epoch_logs")
+    for d in (trace_dir, log_dir, ckpt_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["train", "--featmap-size", str(cfg.featmap_size), "--img-size",
+            str(cfg.pred_img_size), "--epochs", "1", "--seed", str(seed), "--device", DEVICE,
+            "--ckpt-dir", ckpt_dir, "--log-dir", log_dir]
+    with trainers_built() as trainers:
+        cli.main(argv + ["--trace-dir", trace_dir, "--trace-steps", str(EPOCH_TRACE_STEPS)]
+                 + ["--tensorboard"] * has_tb)
+    with open(os.path.join(trace_dir, obs.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    cli_counts, _ = trainer_launches(trainers, captures=0)
+    out["trace"] = {"file_bytes": os.path.getsize(os.path.join(trace_dir, obs.TRACE_FILE)),
+                    "k1": sum("fused_render_fwd_kernel" in k for k in kernels),
+                    "k2": sum("ray_kernel" in k for k in kernels), "kernels": len(kernels),
+                    "launches": cli_counts}
+    log("epoch_program (f) " + json.dumps(out["trace"]))
+    if (out["trace"]["k1"], out["trace"]["k2"]) != (EPOCH_TRACE_STEPS, EPOCH_TRACE_STEPS):
+        raise AssertionError(f"epoch_program: the trace {out['trace']}")
+    if has_tb:
+        written = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents")]
+        out["tensorboard"] = f"event file written: {written}"
+        if not written:
+            raise AssertionError("epoch_program: --tensorboard wrote no event file")
+    else:
+        try:
+            cli.main(argv + ["--tensorboard"])
+        except obs.TensorBoardUnavailable as e:
+            out["tensorboard"] = f"raised the clear error: {e}"
+        else:
+            raise AssertionError("epoch_program: --tensorboard without the package did not raise")
+    log(f"epoch_program (g) --tensorboard: {out['tensorboard']}")
+
+    k1, k2 = fr.fused_render_fwd.launches, fr.fused_render_bwd.launches
+    parts = [t_launches, t2_launches, cli_counts]
+    k1_sum = sum(c[0] for p in parts for c in p.values())
+    k2_sum = sum(c[1] for p in parts for c in p.values())
+    out["k1"], out["k2"] = k1, k2
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"epoch_program: phase {out['phase_s']:.1f} s; launches K1 {k1}, K2 {k2} (by path "
+        f"{json.dumps(parts)})")
+    if (k1, k2) != (k1_sum, k2_sum):
+        raise AssertionError(f"epoch_program: launches K1 {k1} K2 {k2} against the paths' "
+                             f"{k1_sum} {k2_sum}")
+    torch.cuda.empty_cache()
+    return out
 
 
 # the fit phase: the subject's checkpoint fitted to its own val frame 0,
@@ -2304,40 +2707,29 @@ def phase_preprocess(seed: int, workdir: str):
     ckpt_dir, log_dir = os.path.join(workdir, "prep_ckpt"), os.path.join(workdir, "prep_logs")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     shutil.rmtree(log_dir, ignore_errors=True)
-    by_path = {"train_steps": [0, 0], "validation": [0, 0]}
-
-    def counted(method, path):
-        def run(self, *args, **kwargs):
-            before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
-            y = method(self, *args, **kwargs)
-            by_path[path][0] += fr.fused_render_fwd.launches - before[0]
-            by_path[path][1] += fr.fused_render_bwd.launches - before[1]
-            return y
-        return run
-
-    methods = (Trainer.train_one_epoch, Trainer.validate)
-    Trainer.train_one_epoch = counted(methods[0], "train_steps")
-    Trainer.validate = counted(methods[1], "validation")
     fr.fused_render_fwd.launches = 0
     fr.fused_render_bwd.launches = 0
     t0 = time.perf_counter()
-    try:
+    with trainers_built() as trainers:
         train_rec = cli.main(["train", "--data", out, "--featmap-size", str(cfg.featmap_size),
                               "--img-size", str(S), "--epochs", "1", "--batch-size", "2",
                               "--seed", str(seed), "--device", DEVICE, "--ckpt-dir", ckpt_dir,
                               "--log-dir", log_dir])
         torch.cuda.synchronize()
-    finally:
-        Trainer.train_one_epoch, Trainer.validate = methods
     train_s = time.perf_counter() - t0
+    by_path, graphs_ok = trainer_launches(trainers)
     (k1_train, k2_train), (k1_val, k2_val) = by_path["train_steps"], by_path["validation"]
+    k1_warm, k2_warm = by_path["graph_warmup"]
     losses = {k: train_rec[k] for k in ("bg_loss", "head_loss", "nonhead_loss", "vgg",
                                         "total_loss")}
     log(f"preprocess {at()}: cli train --data on the subject, 1 epoch in {train_s:.1f} s: "
         f"launches in the train steps K1 {k1_train}, K2 {k2_train} (expected "
-        f"{PREP_TRAIN_STEPS} each), in validation K1 {k1_val}, K2 {k2_val} (expected 1, 0); "
+        f"{PREP_TRAIN_STEPS} each, graph replays), before the graph's capture K1 {k1_warm}, "
+        f"K2 {k2_warm}, in validation K1 {k1_val}, K2 {k2_val} (expected 1, 0); "
         f"{json.dumps(losses)}")
     if (k1_train, k2_train, k1_val, k2_val) != (PREP_TRAIN_STEPS, PREP_TRAIN_STEPS, 1, 0) \
+            or not graphs_ok or (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches) \
+            != (k1_train + k1_val + k1_warm, k2_train + k2_val + k2_warm) \
             or not all(map(math.isfinite, losses.values())) or train_rec["finite_step"] != 1.0:
         raise AssertionError("preprocess: cli train --data on the preprocessed subject")
 
@@ -2368,7 +2760,8 @@ def phase_preprocess(seed: int, workdir: str):
     return {"nets": nets, "render_7x7": render, "cli_s": cli_s, "build_s": build_s,
             "stage_ms": stage_ms, "checks": checks, "train_s": train_s,
             "k1_train": k1_train, "k2_train": k2_train, "k1_validation": k1_val,
-            "full_rasterizer": full, "phase_s": phase_s}
+            "k1_warmup": k1_warm, "k2_warmup": k2_warm, "full_rasterizer": full,
+            "phase_s": phase_s}
 
 
 def _train_setup(seed: int, use_fused: bool = True):
@@ -3386,6 +3779,7 @@ def main() -> int:
     train = phase_training(args.seed, workdir)
     parity = phase_train_parity(args.seed)
     step = phase_train_breakdown(args.seed)
+    epochs = phase_epoch_program(args.seed, workdir)
     subject = phase_subject(args.seed, workdir)
     fit = phase_fit(args.seed, workdir)
     fit_ckpt, fitted = fit.pop("ckpt_dir"), fit.pop("fitted")
@@ -3416,21 +3810,29 @@ def main() -> int:
     # upsampler, in the subject's training and its serving; K2 in training,
     # in that gradient and in the subject's training; K5 on the fused two
     k1["launches_by_path"] = {"serving": serving_launches, "train_steps": train["k1_train"],
+                              "train_graph_warmup": train["k1_warmup"],
                               "validation": train["k1_validation"],
+                              "epoch_program": epochs["k1"],
                               "serving_fused_upsampler": ups_serving["k1"],
                               "gradient_fused_upsampler": ups_grad["k1"],
                               "subject_train_steps": subject["k1_train"],
+                              "subject_graph_warmup": subject["k1_warmup"],
                               "subject_validation": subject["k1_validation"],
                               "subject_animate": subject["k1_animate"],
                               "fit": fit["k1_fit"], "render": fit["k1_render"],
                               "fit_animate": fit["k1_animate"], "vq_renders": vq["k1_renders"],
                               "coeff_animate": coeff["k1_animate"],
                               "preprocessed_train_steps": prep["k1_train"],
+                              "preprocessed_graph_warmup": prep["k1_warmup"],
                               "preprocessed_validation": prep["k1_validation"]}
     k2["launches_by_path"] = {"train_steps": train["k2"],
+                              "train_graph_warmup": train["k2_warmup"],
+                              "epoch_program": epochs["k2"],
                               "gradient_fused_upsampler": ups_grad["k2"],
-                              "subject_train_steps": subject["k2"], "fit": fit["k2_fit"],
-                              "preprocessed_train_steps": prep["k2_train"]}
+                              "subject_train_steps": subject["k2"],
+                              "subject_graph_warmup": subject["k2_warmup"], "fit": fit["k2_fit"],
+                              "preprocessed_train_steps": prep["k2_train"],
+                              "preprocessed_graph_warmup": prep["k2_warmup"]}
     # K2 at the fit's shape (B=1, input_grads=True): its launches on the fit
     # path all have input gradients
     bd = fit["breakdown"]
@@ -3448,7 +3850,9 @@ def main() -> int:
     log(json.dumps({"serving": {"frames": FRAMES, "ms_per_frame": ms_per_frame},
                     "fused_upsampler": {"serving": ups_serving, "gradient": ups_grad},
                     "training": {"steps": train["steps"], "ms_per_step": step["ms_per_step"],
-                                 "rays_per_s": step["rays_per_s"], "parity": parity},
+                                 "rays_per_s": step["rays_per_s"], "parity": parity,
+                                 "graph": train["graph"]},
+                    "epoch_program": epochs,
                     "subject": subject, "fit": fit, "vq": vq, "stage2": stage2,
                     "coeff": coeff, "preprocess": prep,
                     "mesh": {"epoch_2x2": mesh_train, "parity": mesh_parity, "nccl_1x1": nccl},

@@ -329,11 +329,16 @@ def _train(args, mesh=None) -> dict:
             say(f"--resume: no checkpoint under {args.ckpt_dir}; starting fresh")
         tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
                          ckpt_dir=args.ckpt_dir, use_vgg_loss=not args.no_vgg,
-                         vgg_weights=args.vgg_weights, seed=args.seed, log_dir=args.log_dir,
-                         guard_policy=args.guard_policy)
+                         vgg_weights=args.vgg_weights, seed=args.seed,
+                         native_prefetch=args.native_prefetch, log_dir=args.log_dir,
+                         use_tensorboard=args.tensorboard, trace_dir=args.trace_dir,
+                         trace_steps=args.trace_steps, guard_policy=args.guard_policy)
         t = Trainer(cfg, tc, train, val, device=dev, mesh=mesh, lpips=lpips)
         t.init()
-    hist = t.train(args.epochs)
+    try:
+        hist = t.train(args.epochs)
+    finally:
+        t.close()
     rec = hist[-1] if hist else {
         "epochs_done": t.start_epoch, "step": t.state.step,
         "note": "checkpoint already at/beyond --epochs; nothing to do"}
@@ -345,7 +350,9 @@ def _train(args, mesh=None) -> dict:
 # `cli train` flags that --resume lays over the checkpoint's TrainConfig when
 # they are set on the command line (JAX cli.py:126-153): flag dest -> field
 RESUME_FIELDS = {"batch_size": "batch_size", "lr": "lr", "vgg_weights": "vgg_weights",
-                 "seed": "seed", "log_dir": "log_dir", "guard_policy": "guard_policy"}
+                 "seed": "seed", "native_prefetch": "native_prefetch", "log_dir": "log_dir",
+                 "tensorboard": "use_tensorboard", "trace_dir": "trace_dir",
+                 "trace_steps": "trace_steps", "guard_policy": "guard_policy"}
 
 
 def _train_rank(local_rank: int, world: int, args, init_method: str, result_path: str) -> None:
@@ -760,9 +767,20 @@ def main(argv=None):
     pt.add_argument("--vgg-weights", default="",
                     help="torchvision vgg16 features state_dict (.pth/.npz); "
                     "without it a seeded random VGG16")
+    pt.add_argument("--native-prefetch", action="store_true",
+                    help="batches from the C++ threaded prefetcher where the frame set is not "
+                    "on the device (built with g++ into build/native/ at first use)")
     pt.add_argument("--resume", action="store_true",
                     help="go on from the newest checkpoint in --ckpt-dir")
-    pt.add_argument("--log-dir", default="./logs", help="metrics.jsonl goes here")
+    pt.add_argument("--log-dir", default="./logs",
+                    help="metrics.jsonl, TensorBoard events and validation strips go here")
+    pt.add_argument("--tensorboard", action="store_true",
+                    help="the per-epoch metrics as TensorBoard scalars too (needs the "
+                    "tensorboard package)")
+    pt.add_argument("--trace-dir", default="",
+                    help="a torch.profiler trace (trace.json, Chrome / Perfetto) of the first "
+                    "epoch's steps 1..--trace-steps, written here")
+    pt.add_argument("--trace-steps", type=int, default=5)
     pt.add_argument("--guard-policy", default="warn", choices=["warn", "rollback", "abort"],
                     help="on non-finite steps: warn / roll back to the last checkpoint / abort")
     pt.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -129,12 +129,8 @@ class AudioConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (HeadNeRFOptions.py:77-88 +
-    talker_trainer.py:665,722-727). The fields of the JAX `TrainConfig` that
-    name features the port does not have yet (native_prefetch,
-    use_tensorboard, trace_dir, trace_steps) are left out, and so are the
-    switches whose one value the port always takes: bf16 compute on the GPU,
-    precomputed GT VGG planes, the device cache (`train/trainer.py`), the
-    per-epoch metrics log and guard_max_bad (10)."""
+    talker_trainer.py:665,722-727), the JAX `TrainConfig`'s fields with its
+    names and defaults."""
 
     # frame batch per optimizer step (the reference trains B=1; the JAX
     # package's default is 2)
@@ -148,13 +144,38 @@ class TrainConfig:
     # torchvision `vgg16().features` state_dict (.pth) or an .npz of the same
     # keys; empty -> a seeded random VGG16 (models/perceptual.py:load_vgg16)
     vgg_weights: str = ""
+    # precompute the masked-GT VGG activations of every frame once, so that
+    # a step runs only the prediction's branch of the perceptual loss
+    vgg_precompute_gt: bool = True
     seed: int = 0
+    # batches from the C++ threaded prefetcher (native/nerf3dt_native.cpp,
+    # `data/native.py`) where the device cache is off; a failed build raises
+    native_prefetch: bool = False
+    # the frame set (with its VGG planes) on the device up to this many
+    # bytes, batches gathered there; on the GPU without a mesh each step is
+    # then a replay of one CUDA graph (`train/trainer.py`)
+    device_cache: bool = True
+    device_cache_bytes: int = 6 * 1024**3
+    # the HeadNeRF and the VGG compute in bf16 where the kernels run (the
+    # GPU; False raises there, the kernels have no other dtype); the CPU's
+    # plain path computes in f32 either way
+    bf16_compute: bool = True
     ckpt_dir: str = "./logs/ckpt"
-    log_dir: str = "./logs"       # per-epoch metrics.jsonl
+    log_dir: str = "./logs"
+    # per-epoch metrics.jsonl under log_dir (`utils/observability.py`)
+    metric_log: bool = True
+    # the same scalars to TensorBoard (torch.utils.tensorboard; raises
+    # before training when the tensorboard package is missing)
+    use_tensorboard: bool = False
+    # a torch.profiler trace (Chrome / Perfetto JSON) of steps
+    # 1..trace_steps of the first epoch, written under trace_dir
+    trace_dir: str = ""
+    trace_steps: int = 5
     # on an epoch with non-finite steps: "warn" (the step already kept the
-    # params), "rollback" to the last checkpoint, or "abort" after a run of
-    # bad steps (utils/guards.py StepGuard)
+    # params), "rollback" to the last checkpoint, or "abort" once a run of
+    # guard_max_bad bad steps is reached (utils/guards.py StepGuard)
     guard_policy: str = "warn"
+    guard_max_bad: int = 10
     # validate and checkpoint every k-th epoch and after the last one
     val_every: int = 1
 

@@ -116,10 +116,13 @@ class FrameDataset:
         self._dev = {k: torch.as_tensor(v, device=device) for k, v in self.arrays.items()}
         self._dev_xy = torch.as_tensor(np.tile(self.xy, (batch_size, 1, 1)), device=device)
 
-    def device_batch(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
-        """A batch gathered on the device (requires `to_device`)."""
+    def device_batch(self, idx: Union[np.ndarray, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A batch gathered on the device (requires `to_device`). `idx` may
+        be an int64 tensor on that device: the gather then copies nothing
+        from the host (a CUDA graph's static index buffer)."""
         d = self._dev
-        i = torch.as_tensor(np.asarray(idx, np.int64), device=self._dev_xy.device)
+        i = (idx if isinstance(idx, torch.Tensor)
+             else torch.as_tensor(np.asarray(idx, np.int64), device=self._dev_xy.device))
         b = {out: d[src].index_select(0, i) for out, src in BATCH_FIELDS}
         for k in VGG_KEYS:
             if k in d:

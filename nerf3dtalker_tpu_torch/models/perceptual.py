@@ -14,6 +14,7 @@ torchvision `vgg16().features` state_dict loads as it is.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -68,10 +69,17 @@ class VGG16Features(nn.Module):
         return feats
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device, dtype: torch.dtype):
+    """(mean, std) on `device`, made once: a copy from the host cannot run
+    while a CUDA graph captures the train step."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
 def preprocess(img: torch.Tensor, resize: bool = True) -> torch.Tensor:
     """[B, H, W, 3] in [0, 1] -> normalized, 224x224 (HeadNeRFLossUtils.py:45-49)."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device)
-    std = torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device)
+    mean, std = _imagenet_stats(img.device, img.dtype)
     x = (img - mean) / std
     if resize:
         x = F.interpolate(x.permute(0, 3, 1, 2), size=(224, 224), mode="bilinear",

@@ -20,6 +20,11 @@ A wrapper launches its kernel on a CUDA tensor and takes the plain version,
 with the same arithmetic, on a CPU tensor. There is no other route: a CUDA
 tensor the kernel does not take raises.
 
+Each wrapper counts its launches (`fused_render_fwd.launches`, ...). A
+launch made while a stream captures a CUDA graph runs only when the graph
+replays: it is recorded by the `record_launches` in force and counted by
+`replay`, once per replay.
+
 Packed weight layout (kernels [in, out]; per-batch conditioning codes folded
 into biases by `pack_weights`, a linear op in front of the kernel):
   w0p   [PE_PAD, H]  fea_0 rows for the (padded) positional encoding
@@ -35,8 +40,9 @@ into biases by `pack_weights`, a linear op in front of the kernel):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -393,6 +399,47 @@ def fused_render_fwd_design(device=None) -> Dict[str, int]:
     return dict(zip(_DESIGN_KEYS, out))
 
 
+_recording: List[Dict[str, int]] = []   # the captures in progress, innermost last
+
+
+@contextlib.contextmanager
+def record_launches() -> Iterator[Dict[str, int]]:
+    """The K1 and K2 launches recorded into a CUDA graph captured inside
+    this block, by wrapper name; `replay` counts them."""
+    rec = {"fused_render_fwd": 0, "fused_render_bwd": 0, "input_grads": 0}
+    _recording.append(rec)
+    try:
+        yield rec
+    finally:
+        _recording.pop()
+
+
+def _launched(name: str, input_grads: bool = False) -> None:
+    """Count one launch of kernel `name`: now, or, while a stream captures,
+    at each replay of the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        if not _recording:
+            raise RuntimeError(f"{name} launched into a CUDA graph outside record_launches(): "
+                               "its replays would go uncounted")
+        _recording[-1][name] += 1
+        _recording[-1]["input_grads"] += int(input_grads)
+        return
+    if name == "fused_render_fwd":
+        fused_render_fwd.launches += 1
+    else:
+        fused_render_bwd.launches += 1
+        fused_render_bwd.input_grads_launches += int(input_grads)
+
+
+def replay(graph, launches: Dict[str, int]) -> None:
+    """Replay a CUDA graph on the current stream and count the kernel
+    launches `record_launches` recorded into it."""
+    graph.replay()
+    fused_render_fwd.launches += launches["fused_render_fwd"]
+    fused_render_bwd.launches += launches["fused_render_bwd"]
+    fused_render_bwd.input_grads_launches += launches["input_grads"]
+
+
 def fused_render_fwd(
     pe: torch.Tensor,        # [B, R, NS, PE_PAD] f32 (PE padded 63 -> 64)
     z_dists: torch.Tensor,   # [B, R, NS] f32
@@ -423,7 +470,7 @@ def fused_render_fwd(
             *ptrs, B, R, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_render_fwd kernel launch failed: cudaError_t {err}")
-    fused_render_fwd.launches += 1
+    _launched("fused_render_fwd")
     return feat, bg, depth
 
 
@@ -479,8 +526,7 @@ def fused_render_bwd(
             *ptrs, B, R, int(input_grads), nbytes, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_render_bwd kernel launch failed: cudaError_t {err}")
-    fused_render_bwd.launches += 1
-    fused_render_bwd.input_grads_launches += int(input_grads)
+    _launched("fused_render_bwd", input_grads)
     return (*ins, dw)
 
 

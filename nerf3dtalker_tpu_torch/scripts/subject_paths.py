@@ -69,6 +69,7 @@ def main(argv=None):
             for e in range(args.epochs):
                 losses = t.train_one_epoch(e)
                 rec["epochs"].append({**{k: losses[k] for k in LOSSES}, "opacity": opacity()})
+            t.close()     # the step's CUDA graph and its pool
             print(json.dumps(rec), flush=True)
             out.append(rec)
     return out

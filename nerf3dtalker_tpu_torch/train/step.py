@@ -14,6 +14,11 @@ On the GPU HeadNeRF computes in bf16 through the fused render kernels
 stratified jitter and the Audio2Style dropout are drawn from the generator
 the caller passes to `train_step`; `deterministic=True` turns both off.
 
+A step syncs nothing with the host (the guard, Adam's `found_inf` and the
+StepLR rate are device tensors; Adam is fused), so `device_step`, the step
+without its host-side count, can be captured whole into a CUDA graph
+(`train/trainer.py:StepGraph`).
+
 With a `mesh` (the JAX mesh branch, step.py:211-258) each rank holds its
 shard of the batch (`parallel.mesh.shard_batch`) and the same params:
 
@@ -94,6 +99,7 @@ class StepFns:
 
     init: Callable[[int], TrainState]
     loss_and_grads: Callable
+    device_step: Callable
     train_step: Callable
     eval_step: Callable
     render: Callable
@@ -116,6 +122,29 @@ def apply_update(state: TrainState, grads: Dict[str, List[torch.Tensor]],
     opt.found_inf = (~ok).float()
     opt.step()
     opt.zero_grad(set_to_none=True)
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, state_dict: dict) -> None:
+    """`opt.load_state_dict(state_dict)` into the tensors `opt` already
+    holds: `load_state_dict` puts new moment and step tensors in place of
+    the old ones, which a CUDA graph captured before would go on reading.
+    The values are copied into the old tensors (a state the checkpoint does
+    not have is zeroed: Adam's fresh state), and each group keeps its own
+    `fused` and `capturable` flags."""
+    flags = [{k: g[k] for k in ("fused", "capturable") if k in g} for g in opt.param_groups]
+    live = {p: dict(opt.state[p]) for g in opt.param_groups for p in g["params"]
+            if p in opt.state}
+    opt.load_state_dict(state_dict)
+    for group, kept in zip(opt.param_groups, flags):
+        group.update(kept)
+    for p, old in live.items():
+        new = opt.state[p]
+        for k, t in old.items():
+            if k in new:
+                t.copy_(new[k])
+            else:
+                t.zero_()
+            new[k] = t
 
 
 def assemble_codes(batch: Dict[str, torch.Tensor], audio_exp: Optional[torch.Tensor]
@@ -147,12 +176,15 @@ def build_step_fns(
     use_fused: Optional[bool] = None,
     mesh: Optional[Mesh] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    precomputed_vgg: bool = True,
 ) -> StepFns:
     """Step functions on `device` (default `cuda`), or on the device of this
     rank of `mesh`. `use_fused` defaults to the GPU, and is always on under a
     mesh (K4: the kernels on the GPU, their plain versions on the CPU);
-    `compute_dtype` defaults to bf16 on the GPU (the kernels' only one) and
-    f32 on the CPU.
+    `compute_dtype` defaults to bf16 on the GPU (the kernels' only one; with
+    `train_cfg.bf16_compute` False and the kernels on, it raises) and f32 on
+    the CPU. `precomputed_vgg`: the batches carry the GT's VGG planes
+    (`TrainConfig.vgg_precompute_gt`); otherwise each step computes them.
 
     Batch layout (tensors on the device): mels [B, 80, 16], gt_rgb
     [B, H, W, 3], head_mask [B, H, W, 1], iden/expr/text/illu, audio_exp
@@ -164,7 +196,11 @@ def build_step_fns(
     on_gpu = dev.type == "cuda"
     if use_fused is None:
         use_fused = on_gpu or mesh is not None
-    cdt = compute_dtype or (torch.bfloat16 if on_gpu else torch.float32)
+    if compute_dtype is None and on_gpu and not train_cfg.bf16_compute and use_fused:
+        raise ValueError("bf16_compute=False on the GPU: the fused render kernels compute in "
+                         "bfloat16 only; build the step with use_fused=False for f32")
+    cdt = compute_dtype or (torch.bfloat16 if on_gpu and train_cfg.bf16_compute
+                            else torch.float32)
     vgg_cdt = cdt if cdt == torch.bfloat16 else None
     bg_value = 1.0 if nerf_cfg.bg_type == "white" else 0.0
     sched = make_schedule(train_cfg, steps_per_epoch)
@@ -197,7 +233,8 @@ def build_step_fns(
                           batch["Tvec"], batch["inv_inmat"], noise=noise)
 
     def losses_of(pred, batch):
-        gt_feats = [batch[f"vgg_f{i}"] for i in range(4)] if vgg is not None else None
+        gt_feats = ([batch[f"vgg_f{i}"] for i in range(4)] if vgg is not None and precomputed_vgg
+                    else None)
         return headnerf_losses(pred, batch["gt_rgb"], batch["head_mask"], bg_value,
                                vgg=vgg, vgg_compute_dtype=vgg_cdt, gt_vgg_feats=gt_feats,
                                data_group=None if mesh is None else mesh.data_group)
@@ -214,19 +251,29 @@ def build_step_fns(
         n = len(params["nerf"])
         return losses, {"nerf": list(flat[:n]), "audio": list(flat[n:])}
 
-    def train_step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
-                   deterministic: bool = False) -> Dict[str, torch.Tensor]:
-        """One guarded two-group Adam step; returns the losses as 0-d device
-        tensors with `finite_step` (1 or 0). Jitter and dropout come from
-        `generator` (on the device) unless `deterministic`."""
+    def device_step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
+                    deterministic: bool = False, skip: bool = False) -> Dict[str, torch.Tensor]:
+        """One guarded two-group Adam step, all of it on the device; returns
+        the losses as 0-d device tensors with `finite_step` (1 or 0). Jitter
+        and dropout come from `generator` (on the device) unless
+        `deterministic`. `skip` takes the update's non-finite branch whatever
+        the gradients: nothing moves and Adam's step counts stay, but its
+        state exists afterwards (a CUDA graph's warm-up). `state.step` is
+        the caller's to count."""
         if not deterministic and generator is None:
             raise ValueError("train_step needs a generator unless deterministic")
         losses, grads = loss_and_grads(state, batch, None if deterministic else generator)
         ok = all_finite(grads["nerf"] + grads["audio"])
-        apply_update(state, grads, ok)
-        state.step += 1
+        apply_update(state, grads, torch.zeros_like(ok) if skip else ok)
         out = {k: v.detach() for k, v in losses.items()}
         out["finite_step"] = ok.float()
+        return out
+
+    def train_step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
+                   deterministic: bool = False) -> Dict[str, torch.Tensor]:
+        """`device_step`, counted in `state.step`."""
+        out = device_step(state, batch, generator, deterministic)
+        state.step += 1
         return out
 
     @torch.no_grad()
@@ -238,5 +285,5 @@ def build_step_fns(
         pred = forward(state, batch, None)
         return pred["merge_img"], losses_of(pred, batch)
 
-    return StepFns(init=init, loss_and_grads=loss_and_grads, train_step=train_step,
-                   eval_step=eval_step, render=render, compute_dtype=cdt)
+    return StepFns(init=init, loss_and_grads=loss_and_grads, device_step=device_step,
+                   train_step=train_step, eval_step=eval_step, render=render, compute_dtype=cdt)

@@ -62,9 +62,9 @@ def test_validation_every_n_epochs_with_train_metrics(tmp_path, monkeypatch):
     train, val, train_eval = _data()
     t = Trainer(TINY, _config(tmp_path, epochs=7, val_every=3, guard_policy="rollback"), train,
                 val, device="cpu", lpips=_seeded_lpips(), train_eval_data=train_eval)
-    clean = t.train_one_epoch
-    monkeypatch.setattr(t, "train_one_epoch",
-                        lambda e: {**clean(e), **({"finite_step": 0.0} if e == 3 else {})})
+    clean = t.train_epoch_group     # train() groups the epochs up to each validation
+    monkeypatch.setattr(t, "train_epoch_group", lambda e0, n: [
+        {**m, **({"finite_step": 0.0} if e0 + j == 3 else {})} for j, m in enumerate(clean(e0, n))])
     hist = t.train()
     assert [h["epoch"] for h in hist] == list(range(7))
     keys = {"SSIM", "PSNR", "LPIPS", "TRAIN_SSIM", "TRAIN_PSNR", "TRAIN_LPIPS"}

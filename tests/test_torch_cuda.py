@@ -834,3 +834,121 @@ def test_vq_step_on_the_card_matches_the_cpu(cuda):
             scale = mass[k].norm()
         err = float((got - ref).norm() / scale.clamp_min(1e-30))
         assert err <= VQ_GRAD_REL_L2, f"{k}: {err:.3e} of its scale"
+
+
+# The trainer's CUDA graph of the step against eager steps, from one state
+# and seed: a step's losses within GRAPH_LOSS_RTOL and every gradient leaf
+# (Adam's first moment after one step, 0.1 of the gradient) within
+# GRAPH_GRAD_REL_L2 relative L2, the train step's limits in chip_smoke.py
+# (the two differ where the decoder's backward sums by atomics); whole
+# epochs' losses within GRAPH_LOSS_RTOL. Over several steps Adam carries
+# those atomics into the leaves as far for two eager runs as for a replay
+# against an eager run (on an H100, 6.5e-2 relative L2 on an LSTM weight's
+# first moment after an epoch of 8 steps at Reso64), so the leaves are held
+# at one step
+GRAPH_LOSS_RTOL = 1e-2
+GRAPH_GRAD_REL_L2 = 3e-2
+
+
+def _graph_trainer(dev, tmp_path, **kw):
+    """A trainer at Reso64 (VGG on), 4 frames: two steps an epoch. At a
+    featmap of 8 the atomics' share of a summed bias gradient is larger:
+    a replay's `density_bias` gradient was 4.0e-2 relative L2 from an eager
+    step's there, 3.7e-3 at most on any leaf at Reso64 (two eager steps
+    alike, on an H100)."""
+    from nerf3dtalker_tpu_torch.config import TrainConfig
+    from nerf3dtalker_tpu_torch.data.dataset import coherent_subject
+    from nerf3dtalker_tpu_torch.train.trainer import Trainer
+
+    cfg = reso64()
+    t = Trainer(cfg, TrainConfig(batch_size=2, ckpt_dir="", log_dir="", **kw),
+                coherent_subject(cfg, 4), device=dev)
+    t.init()
+    return t
+
+
+def _moments(t):
+    return {f"{g}.{n}": t.state.opt.state[p]["exp_avg"].clone()
+            for g, m in (("nerf", t.state.nerf), ("audio", t.state.audio))
+            for n, p in m.named_parameters() if p.requires_grad}
+
+
+def _check_losses(got, want):
+    for a, b in zip(got, want):
+        for k in ("total_loss", "head_loss", "bg_loss", "vgg"):
+            assert abs(a[k] - b[k]) <= GRAPH_LOSS_RTOL * abs(b[k]), (k, a[k], b[k])
+
+
+@pytest.mark.cuda
+def test_step_graph_replays_match_eager_steps(cuda, tmp_path):
+    """One step and two epochs through the trainer's CUDA graph against the
+    same eagerly from the same state and seeds; one K1 and one K2 counted a
+    replay, two of each before the capture; then the state loaded back in
+    place (`Trainer._load`) and the graph replayed again from it."""
+    import copy
+
+    from nerf3dtalker_tpu_torch.train.trainer import GRAPH_WARMUP_STEPS, epoch_order, step_seed
+
+    t = _graph_trainer(cuda, tmp_path)
+    snap = {"nerf": copy.deepcopy(t.state.nerf.state_dict()),
+            "audio": copy.deepcopy(t.state.audio.state_dict()),
+            "opt": copy.deepcopy(t.state.opt.state_dict()), "step": 0}
+    idx = torch.as_tensor(epoch_order(4, 0, 0)[:2], device=cuda)
+    t.generator.manual_seed(step_seed(0, 0, 0))
+    eager = t.fns.train_step(t.state, t.train_data.device_batch(idx), t.generator)
+    m_eager = _moments(t)
+    t._load(snap)
+    before = (fr.fused_render_fwd.launches, fr.fused_render_bwd.launches)
+    graph = t._step_graph()
+    graph.step(idx, step_seed(0, 0, 0))
+    acc = torch.zeros(len(graph.keys), device=cuda)
+    graph.take(acc)
+    _check_losses([dict(zip(graph.keys, acc.tolist()))],
+                  [{k: float(v) for k, v in eager.items()}])
+    for k, ref in m_eager.items():
+        err = float((_moments(t)[k] - ref).norm() / ref.norm().clamp_min(1e-30))
+        assert err <= GRAPH_GRAD_REL_L2, f"{k}: {err:.3e}"
+    assert (fr.fused_render_fwd.launches - before[0], fr.fused_render_bwd.launches - before[1]) \
+        == (1 + GRAPH_WARMUP_STEPS, 1 + GRAPH_WARMUP_STEPS)
+    assert t.kernel_launches["graph_warmup"] == [GRAPH_WARMUP_STEPS] * 2
+    assert t.graph_records[0]["launches"] == {"fused_render_fwd": 1, "fused_render_bwd": 1,
+                                              "input_grads": 0}
+    assert t.graph_records[0]["pool_bytes"] > 0
+
+    t._load(snap)
+    got = t.train_epoch_group(0, 2)
+    assert t.kernel_launches["train_steps"] == [4, 4] and t.state.step == 4
+    t._load(snap)
+    t.use_graph = False
+    want = t.train_epoch_group(0, 2)
+    _check_losses(got, want)
+    t._load(snap)
+    t.use_graph = True
+    _check_losses(t.train_epoch_group(0, 2), want)
+    assert len(t.graph_records) == 1 and t.state.step == 4
+    t.close()
+
+
+@pytest.mark.cuda
+def test_graph_generator_draws_what_eager_draws(cuda):
+    """A generator registered with a CUDA graph: a replay after
+    manual_seed(s) draws bit for bit what eager draws seeded s draw (the
+    step's jitter and dropout shapes)."""
+    gen = torch.Generator(device=cuda)
+    shapes = [(2, 4096, 65), (2, 1280)]
+    g = torch.cuda.CUDAGraph()
+    g.register_generator_state(gen)
+    with torch.cuda.graph(g):
+        drawn = [torch.rand(s, generator=gen, device=cuda) for s in shapes]
+    for seed in (0, 100003 * 7 + 3, 2**32 - 1):
+        gen.manual_seed(seed)
+        g.replay()
+        gen.manual_seed(seed)
+        for d, s in zip(drawn, shapes):
+            assert torch.equal(d, torch.rand(s, generator=gen, device=cuda))
+
+
+@pytest.mark.cuda
+def test_bf16_compute_off_raises_on_the_card(cuda, tmp_path):
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        _graph_trainer(cuda, tmp_path, bf16_compute=False)
